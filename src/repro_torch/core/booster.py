@@ -1,0 +1,500 @@
+"""GradientBooster: the estimator surface of the port.
+
+Counterpart of `repro.core.booster`. ``fit`` takes raw ``(X, y)`` arrays or
+an `ArrayDMatrix`; the `ExecutionPolicy` decides the mode with the reference's
+Table-1 byte model, and this slice trains the in-core decision (Alg. 1 per
+round): the whole uint8 ELLPACK matrix is staged to the device once, and
+every tree level runs the CUDA histogram and partition kernels. ``predict``
+goes through `PackedForest` and the CUDA forest kernel.
+
+Everything runs on the CUDA device unless the caller passes
+``device="cpu"``, which runs the plain PyTorch versions of the kernels on the
+host; asking for CUDA where there is none raises. Out-of-core and sampled
+training, best-first growth and the budgeted histogram store are queued and
+raise `NotImplementedError`.
+
+Checkpoints use the reference's format (``model.npz``, ``booster.json``,
+``manifest.json`` with CRC32), so a forest saved by `repro` loads here and
+predicts the same margins, and the reverse.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import shutil
+import time
+import zlib
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import objectives as obj_lib
+from repro_torch.core.ellpack import bin_batch
+from repro_torch.core.histcache import HistogramStore
+from repro_torch.core.policy import ExecutionDecision, ExecutionPolicy
+from repro_torch.core.quantile import HistogramCuts
+from repro_torch.core.sampling import SamplingConfig, sample
+from repro_torch.core.split import SplitParams
+from repro_torch.core.tree import TreeArrays, TreeParams, grow_tree, predict_tree_bins
+from repro_torch.data.pages import TransferStats, fsync_dir
+
+Tensor = torch.Tensor
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """The device an entry point runs on; raise rather than fall back."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' was requested but torch.cuda.is_available() is False; "
+                "pass device='cpu' to run the plain PyTorch versions on the host"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+    return dev
+
+
+class CheckpointCorruptError(RuntimeError):
+    """A checkpoint failed its manifest validation; names the damaged file
+    and, when one survives, the last-good checkpoint (``<path>.prev``)."""
+
+    def __init__(self, path: str, bad_file: str, reason: str, last_good: str | None):
+        self.path = path
+        self.bad_file = bad_file
+        self.last_good = last_good
+        hint = (
+            f"last-good checkpoint: {last_good!r} — resume from it"
+            if last_good
+            else "no intact previous checkpoint found"
+        )
+        super().__init__(
+            f"checkpoint {path!r} is corrupt: {bad_file} {reason}. {hint}."
+        )
+
+
+@dataclasses.dataclass
+class BoosterParams:
+    """Model hyperparameters, with the reference's fields so its checkpoints
+    load. ``kernel_impl`` is read for format compatibility and has no effect:
+    the device of the data picks kernel or plain version. ``max_leaves`` and
+    ``pop_batch`` only matter for best-first growth, which is queued."""
+
+    n_estimators: int = 100
+    learning_rate: float = 0.3
+    max_depth: int = 6
+    reg_lambda: float = 1.0
+    gamma: float = 0.0
+    min_child_weight: float = 1.0
+    max_bin: int = 256
+    objective: str = "reg:squarederror"
+    sampling: SamplingConfig = dataclasses.field(default_factory=SamplingConfig)
+    base_score: float | None = None
+    seed: int = 0
+    kernel_impl: str = "auto"
+    early_stopping_rounds: int | None = None
+    hist_subtraction: bool = True
+    grow_policy: str = "depthwise"
+    max_leaves: int = 0
+    pop_batch: int = 1
+
+    def __post_init__(self) -> None:
+        if self.n_estimators < 1:
+            raise ValueError(f"n_estimators must be >= 1; got {self.n_estimators}")
+        if self.max_depth < 1:
+            raise ValueError(f"max_depth must be >= 1; got {self.max_depth}")
+        if self.learning_rate <= 0.0:
+            raise ValueError(f"learning_rate must be > 0; got {self.learning_rate}")
+        if self.max_bin < 2:
+            raise ValueError(f"max_bin must be >= 2; got {self.max_bin}")
+        if self.grow_policy not in ("depthwise", "lossguide"):
+            raise ValueError(
+                f"grow_policy must be 'depthwise' or 'lossguide'; got {self.grow_policy!r}"
+            )
+        if self.max_leaves < 0:
+            raise ValueError(f"max_leaves must be >= 0; got {self.max_leaves}")
+        if self.pop_batch < 1:
+            raise ValueError(f"pop_batch must be >= 1; got {self.pop_batch}")
+        if self.early_stopping_rounds is not None and self.early_stopping_rounds < 1:
+            raise ValueError(
+                f"early_stopping_rounds must be >= 1 or None; got {self.early_stopping_rounds}"
+            )
+
+    def tree_params(self) -> TreeParams:
+        return TreeParams(
+            max_depth=self.max_depth,
+            split=SplitParams(
+                reg_lambda=self.reg_lambda,
+                gamma=self.gamma,
+                min_child_weight=self.min_child_weight,
+            ),
+            hist_subtraction=self.hist_subtraction,
+            grow_policy=self.grow_policy,
+        )
+
+
+def bin_valid_from_cuts(cuts: HistogramCuts, n_bins: int, device: torch.device) -> Tensor:
+    """(m, n_bins) bool: True at each feature's real bins."""
+    nbf = torch.as_tensor(cuts.n_bins_per_feature, dtype=torch.int64)
+    mask = torch.arange(n_bins)[None, :] < nbf[:, None]
+    return mask.to(device)
+
+
+@dataclasses.dataclass
+class EvalRecord:
+    iteration: int
+    metric: str
+    value: float
+    elapsed_s: float
+
+
+class GradientBooster:
+    """XGBoost-like estimator over the port's tree builder (in-core mode)."""
+
+    def __init__(
+        self,
+        params: BoosterParams | None = None,
+        *,
+        policy: ExecutionPolicy | None = None,
+        device: str | torch.device = "cuda",
+        **kwargs,
+    ):
+        if params is None:
+            params = BoosterParams(**kwargs)
+        elif kwargs:
+            params = dataclasses.replace(params, **kwargs)
+        self.device = resolve_device(device)
+        self.params = params
+        self.policy = policy if policy is not None else ExecutionPolicy()
+        self.objective = obj_lib.get_objective(params.objective)
+        self.trees: list[TreeArrays] = []
+        self.cuts: HistogramCuts | None = None
+        self.base_margin_: float = 0.0
+        self.eval_history: list[EvalRecord] = []
+        self.decision_: ExecutionDecision | None = None
+        self.stats: TransferStats | None = None
+        self.hist_cache = self._make_hist_store()
+        self._packed_forest = None
+
+    def _make_hist_store(self) -> HistogramStore:
+        return HistogramStore(
+            enabled=self.params.hist_subtraction, budget_bytes=self.policy.hist_budget_bytes
+        )
+
+    # ------------------------------------------------------------------ fit
+    def fit(
+        self,
+        data,
+        y: np.ndarray | None = None,
+        *,
+        eval_set: tuple[np.ndarray, np.ndarray] | None = None,
+        eval_metric: str = "auto",
+        verbose: bool = False,
+        cuts: HistogramCuts | None = None,
+    ) -> "GradientBooster":
+        """Train on raw arrays or an `ArrayDMatrix`; the policy's decision
+        lands on ``self.decision_``."""
+        from repro_torch.data.dmatrix import as_dmatrix
+
+        p = self.params
+        self._packed_forest = None
+        dm = as_dmatrix(data, y, max_bin=p.max_bin, cuts=cuts)
+        decision = self.policy.decide(dm, p)
+        self.decision_ = decision
+        if decision.mode != "in_core":
+            raise NotImplementedError(
+                f"the policy chose {decision.mode!r} ({decision.reason}); out-of-core "
+                "and sampled training are not ported yet (queued after the in-core slice)"
+            )
+        self.cuts = dm.cuts
+        return self._fit_in_core(dm, eval_set, eval_metric, verbose)
+
+    def _fit_in_core(self, dm, eval_set, eval_metric, verbose) -> "GradientBooster":
+        p, dev = self.params, self.device
+        tp = p.tree_params()
+        self.stats = TransferStats()
+        self.hist_cache = self._make_hist_store()
+        labels = dm.require_labels()
+        n_bins = dm.n_bins
+        bin_valid = bin_valid_from_cuts(dm.cuts, n_bins, dev)
+        host_bins = np.ascontiguousarray(dm.single_page_bins())
+        # the uint8 ELLPACK matrix is staged as is: the kernels read uint8
+        bins = torch.from_numpy(host_bins).to(dev)
+        self.stats.logical_bytes += host_bins.nbytes
+        self.stats.wire_bytes += host_bins.nbytes
+        self.stats.host_to_device_bytes += host_bins.nbytes
+        labels_t = torch.from_numpy(labels).to(dev)
+
+        self.base_margin_ = (
+            p.base_score if p.base_score is not None else self.objective.base_margin(labels)
+        )
+        margin = torch.full((labels.shape[0],), self.base_margin_, dtype=torch.float32, device=dev)
+        # a refit boosts on from the trees already held, as the reference does
+        for tree in self.trees:
+            margin = margin + p.learning_rate * predict_tree_bins(tree, bins, p.max_depth)
+
+        eval_bins = eval_labels = eval_margin = None
+        if eval_set is not None:
+            eval_bins = torch.from_numpy(bin_batch(eval_set[0], dm.cuts)).to(dev)
+            eval_labels = np.asarray(eval_set[1], dtype=np.float32)
+            eval_margin = torch.full(
+                (eval_labels.shape[0],), self.base_margin_, dtype=torch.float32, device=dev
+            )
+            for tree in self.trees:
+                eval_margin = eval_margin + p.learning_rate * predict_tree_bins(
+                    tree, eval_bins, p.max_depth
+                )
+        metric_name = self._metric_name(eval_metric)
+
+        t0 = time.perf_counter()
+        best_metric, best_iter = None, -1
+        for it in range(p.n_estimators):
+            g, h = sample(*self.objective.grad_hess(margin, labels_t), p.sampling)
+            res = grow_tree(
+                bins, g, h, n_bins, bin_valid, tp,
+                cut_values=dm.cuts.values, cut_ptrs=dm.cuts.ptrs,
+                hist_cache=self.hist_cache,
+            )
+            self.trees.append(res.tree)
+            # eager multiply then add, as the reference (no fused FMA)
+            margin = margin + p.learning_rate * res.tree.leaf_value[res.positions.to(torch.int64)]
+            if eval_bins is None:
+                continue
+            pred = predict_tree_bins(res.tree, eval_bins, tp.max_depth)
+            eval_margin = eval_margin + p.learning_rate * pred
+            val = self._eval(metric_name, eval_labels, eval_margin)
+            self.eval_history.append(EvalRecord(it, metric_name, val, time.perf_counter() - t0))
+            if verbose:
+                print(f"[{it}] {metric_name}={val:.6f}")
+            better = (
+                best_metric is None
+                or (metric_name in ("auc", "accuracy") and val > best_metric)
+                or (metric_name not in ("auc", "accuracy") and val < best_metric)
+            )
+            if better:
+                best_metric, best_iter = val, it
+            elif p.early_stopping_rounds and it - best_iter >= p.early_stopping_rounds:
+                break
+        self.best_iteration_ = best_iter if best_iter >= 0 else len(self.trees) - 1
+        return self
+
+    def _metric_name(self, eval_metric: str) -> str:
+        if eval_metric != "auto":
+            return eval_metric
+        return "auc" if self.objective.name == "binary:logistic" else "rmse"
+
+    def _eval(self, metric: str, labels: np.ndarray, margin: Tensor) -> float:
+        preds = self.objective.transform(margin).cpu().numpy()
+        return obj_lib.METRICS[metric](labels, preds)
+
+    # -------------------------------------------------------------- predict
+    def packed_forest(self, iteration_range: tuple[int, int] | None = None):
+        """The serving view of this forest (`repro_torch.serve.PackedForest`),
+        cached per forest length; an explicit ``iteration_range`` packs fresh."""
+        from repro_torch.serve.forest import PackedForest
+
+        if iteration_range is not None:
+            return PackedForest.from_booster(self, iteration_range)
+        if self._packed_forest is None or self._packed_forest.n_trees != len(self.trees):
+            self._packed_forest = PackedForest.from_booster(self)
+        return self._packed_forest
+
+    def predict_margin(
+        self, X: np.ndarray, iteration_range: tuple[int, int] | None = None
+    ) -> np.ndarray:
+        """Margins of raw feature rows through one fused forest launch; equal
+        bit for bit to `PackedForest.predict_margin_per_tree`."""
+        if self.cuts is None:
+            raise ValueError("booster is not fitted")
+        if hasattr(X, "single_page_bins"):
+            raise NotImplementedError(
+                "predicting a DMatrix streams its pages; that comes with the "
+                "out-of-core slice — pass the raw feature array"
+            )
+        forest = self.packed_forest(iteration_range)
+        return forest.predict_margin_bins(forest.quantize(X)).cpu().numpy()
+
+    def predict(self, X: np.ndarray, output_margin: bool = False) -> np.ndarray:
+        margin = self.predict_margin(X)
+        if output_margin:
+            return margin
+        return self.objective.transform(torch.from_numpy(margin)).numpy()
+
+    # ----------------------------------------------------------- checkpoint
+    def save(self, path: str) -> None:
+        """Checkpoint the forest and quantisation state in the reference's
+        format, atomically: written to a temp sibling, fsynced, renamed into
+        place; the previous checkpoint survives as ``<path>.prev``."""
+        if self.cuts is None:
+            raise ValueError("booster is not fitted")
+        arrays = {}
+        if self.trees:
+            arrays = {
+                f: torch.stack([getattr(t, f) for t in self.trees]).cpu().numpy()
+                for f in TreeArrays._fields
+            }
+        meta = dataclasses.asdict(self.params)
+        meta["sampling"] = dataclasses.asdict(self.params.sampling)
+        meta["base_margin_"] = self.base_margin_
+        meta["n_trees"] = len(self.trees)
+
+        parent = os.path.dirname(os.path.abspath(path)) or "."
+        os.makedirs(parent, exist_ok=True)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        try:
+            np.savez_compressed(
+                os.path.join(tmp, "model.npz"),
+                cut_values=self.cuts.values,
+                cut_ptrs=self.cuts.ptrs,
+                cut_min_vals=self.cuts.min_vals,
+                # the reference's sampling RNG key, PRNGKey(seed) (threefry:
+                # [0, seed]); the port draws no random numbers in this slice
+                rng=np.asarray([0, self.params.seed & 0xFFFFFFFF], np.uint32),
+                **{f"tree_{k}": v for k, v in arrays.items()},
+            )
+            with open(os.path.join(tmp, "booster.json"), "w") as fh:
+                json.dump(meta, fh, indent=2)
+            manifest = {"format": 1, "files": {}}
+            for name in ("model.npz", "booster.json"):
+                with open(os.path.join(tmp, name), "rb") as fh:
+                    blob = fh.read()
+                manifest["files"][name] = {"crc32": zlib.crc32(blob), "bytes": len(blob)}
+            with open(os.path.join(tmp, "manifest.json"), "w") as fh:
+                json.dump(manifest, fh, indent=2)
+            for name in ("model.npz", "booster.json", "manifest.json"):
+                with open(os.path.join(tmp, name), "rb") as fh:
+                    os.fsync(fh.fileno())
+            fsync_dir(tmp)
+            prev = f"{path}.prev"
+            rotated = False
+            if os.path.isdir(path):
+                shutil.rmtree(prev, ignore_errors=True)
+                os.replace(path, prev)
+                rotated = True
+            try:
+                os.replace(tmp, path)
+            except BaseException:
+                if rotated:
+                    os.replace(prev, path)
+                raise
+            fsync_dir(parent)
+        except BaseException:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+
+    @staticmethod
+    def _checkpoint_damage(path: str) -> tuple[str, str] | None:
+        """(bad_file, reason) if the checkpoint fails validation, else None.
+        Checkpoints without a manifest validate on file presence only."""
+        manifest_path = os.path.join(path, "manifest.json")
+        if not os.path.isdir(path):
+            return (path, "does not exist")
+        files: dict[str, dict] = {}
+        if os.path.exists(manifest_path):
+            try:
+                with open(manifest_path) as fh:
+                    files = json.load(fh)["files"]
+            except (OSError, ValueError, KeyError) as err:
+                return ("manifest.json", f"is unreadable ({err})")
+        for name in ("booster.json", "model.npz"):
+            fp = os.path.join(path, name)
+            if not os.path.exists(fp):
+                return (name, "is missing")
+            want = files.get(name, {}).get("crc32")
+            if want is None:
+                continue
+            with open(fp, "rb") as fh:
+                got = zlib.crc32(fh.read())
+            if got != want:
+                return (
+                    name,
+                    f"failed its CRC32 check (manifest {want:#010x}, on disk {got:#010x})",
+                )
+        return None
+
+    @classmethod
+    def verify_checkpoint(cls, path: str) -> None:
+        """Raise `CheckpointCorruptError` if ``path`` fails validation."""
+        damage = cls._checkpoint_damage(path)
+        if damage is None:
+            return
+        prev = f"{path}.prev"
+        last_good = prev if cls._checkpoint_damage(prev) is None else None
+        raise CheckpointCorruptError(path, damage[0], damage[1], last_good)
+
+    @classmethod
+    def last_good_checkpoint(cls, path: str) -> str | None:
+        """The newest intact checkpoint among ``path`` and ``path.prev``."""
+        for cand in (path, f"{path}.prev"):
+            if cls._checkpoint_damage(cand) is None:
+                return cand
+        return None
+
+    @classmethod
+    def load(cls, path: str, device: str | torch.device = "cuda") -> "GradientBooster":
+        """Read a checkpoint written by this package's or the reference's
+        ``save``, after its CRC check, onto ``device``."""
+        cls.verify_checkpoint(path)
+        with open(os.path.join(path, "booster.json")) as fh:
+            meta = json.load(fh)
+        base_margin = meta.pop("base_margin_")
+        n_trees = meta.pop("n_trees")
+        sampling = SamplingConfig(**meta.pop("sampling"))
+        params = BoosterParams(sampling=sampling, **meta)
+        data = np.load(os.path.join(path, "model.npz"))
+        trees = [
+            {f: data[f"tree_{f}"][i] for f in TreeArrays._fields} for i in range(n_trees)
+        ]
+        return cls.from_numpy_state(
+            params, trees, data["cut_values"], data["cut_ptrs"], float(base_margin),
+            cut_min_vals=data["cut_min_vals"], device=device,
+        )
+
+    @classmethod
+    def from_numpy_state(
+        cls,
+        params: BoosterParams,
+        trees: Sequence,
+        cuts_values: np.ndarray,
+        cuts_ptrs: np.ndarray,
+        base_margin: float,
+        *,
+        cut_min_vals: np.ndarray | None = None,
+        device: str | torch.device = "cuda",
+    ) -> "GradientBooster":
+        """A fitted booster from numpy state: ``trees`` holds one entry per
+        tree with the six `TreeArrays` fields, as a mapping or as attributes
+        (a reference `TreeArrays` works as it is). Predicts what the source
+        forest predicts."""
+        self = cls(params, device=device)
+        n_features = len(cuts_ptrs) - 1
+        self.cuts = HistogramCuts(
+            values=np.asarray(cuts_values, np.float32),
+            ptrs=np.asarray(cuts_ptrs, np.int32),
+            min_vals=(
+                np.zeros(n_features, np.float32)
+                if cut_min_vals is None
+                else np.asarray(cut_min_vals, np.float32)
+            ),
+        )
+        self.base_margin_ = float(base_margin)
+        dtypes = {
+            "feature": np.int32, "split_bin": np.int32, "split_value": np.float32,
+            "default_left": np.bool_, "is_leaf": np.bool_, "leaf_value": np.float32,
+        }
+
+        def field(tree, name: str) -> Tensor:
+            value = tree[name] if isinstance(tree, dict) else getattr(tree, name)
+            arr = np.array(value, dtype=dtypes[name])  # a writable copy
+            return torch.from_numpy(arr).to(self.device)
+
+        self.trees = [
+            TreeArrays(*[field(t, f) for f in TreeArrays._fields]) for t in trees
+        ]
+        return self

@@ -1,0 +1,154 @@
+"""Device-memory model for the three training modes (paper Table 1 analogue).
+
+Counterpart of `repro.core.memory` (a copy, without the serving terms, which
+arrive with the serving slice). Table 1 ("maximum rows before OOM on a 16 GiB
+device") is an explicit byte model of each mode's device working set. The
+default device stays the paper's 16 GiB so that `ExecutionPolicy` decides
+exactly as the reference does; ``memory_budget_bytes`` sets another. It
+mirrors the paper's accounting:
+
+  in-core       whole ELLPACK matrix + per-row training state + histograms
+  out-of-core   double-buffered page + per-row training state + histograms
+  ooc+sampling  double-buffered page + compacted (f·n)-row ELLPACK
+                + per-row state for sampled rows only + histograms
+
+The histogram term is depth-honest: the paper's fixed ``2^(d-1)`` snapshot
+ignores both the compact build half that coexists during sibling expansion
+and the ancestor levels the subtraction cache retains — exactly the bytes
+that OOM deep trees. `histogram_bytes(depth, retained_levels)` models the
+peak working set of the reference `HistogramStore`, and ``hist_budget_bytes``
+caps the *retained* (spillable) share at the store's device budget, so
+`ExecutionPolicy` decisions stay honest when spilling is enabled.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+GiB = 1024**3
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceMemoryModel:
+    hbm_bytes: int = 16 * GiB  # paper: V100 16 GiB
+    num_features: int = 500  # paper §4.1 synthetic dataset
+    max_bin: int = 256
+    max_depth: int = 8
+    page_bytes: int = 32 * 1024 * 1024
+    # per-row device state: gradient pair (8) + position (4) + cached pred (4)
+    row_state_bytes: int = 16
+    # HistogramStore ancestor-chain depth (K >= 1; shapes lossguide demand —
+    # depthwise always retains exactly the parent level)
+    hist_retained_levels: int = 1
+    # device budget of the HistogramStore; None = everything stays device-
+    # resident, otherwise retained histograms past the budget spill to host
+    hist_budget_bytes: int | None = None
+    # lossguide leaf budget; 0 = depthwise (whole-level histograms)
+    max_leaves: int = 0
+    # bits per ELLPACK bin symbol on the wire / resident: 8 = raw uint8
+    # pages (the only page codec of this slice; packed codecs are queued)
+    page_codec_bits: int = 8
+
+    @property
+    def hist_node_bytes(self) -> int:
+        """One node histogram: m x n_bins x (g, h) f32."""
+        return self.num_features * self.max_bin * 2 * 4
+
+    def histogram_bytes(self, depth: int | None = None, retained_levels: int | None = None) -> int:
+        """Peak device bytes of per-node histograms while building level
+        ``depth`` (default: the deepest level) with ``retained_levels``
+        retained ancestor levels.
+
+        Depthwise (``retained_levels >= 1``): the peak sits inside
+        `expand_level`, where the retained parent level, the compact build
+        half, and the full level being assembled coexist —
+        ``2^(d-1) + 2^(d-1) + 2^d = 2^(d+1)`` node histograms; the store
+        drops older levels outright (no whole-level derivation chain reads
+        them), so K beyond 1 adds nothing here. ``retained_levels=0`` models
+        the subtraction-free full build (just the level). Lossguide
+        (``max_leaves > 0``): a 4-node working window (parent + built slot +
+        the 2 expanded children) plus the spillable frontier cache of up to
+        ``max_leaves`` histograms and K-1 retired ancestors.
+        """
+        d = (self.max_depth - 1) if depth is None else depth
+        k = self.hist_retained_levels if retained_levels is None else retained_levels
+        if self.max_leaves:
+            working = 4
+            retained = (min(self.max_leaves, 2 ** max(d, 0)) + max(k - 1, 0)) if k else 0
+        elif d == 0 or k < 1:
+            working, retained = 2**d, 0
+        else:
+            working = 2**d + 2 ** (d - 1)
+            retained = 2 ** (d - 1)
+        return (working + retained) * self.hist_node_bytes
+
+    @property
+    def hist_bytes(self) -> int:
+        """Device share of the histogram working set after the store budget.
+
+        Only lossguide's frontier cache is cappable: the depthwise parent
+        level is device-resident through plan/build/expand even when the
+        budget spills it between passes, so the depthwise peak is
+        budget-invariant."""
+        demand = self.histogram_bytes()
+        if self.hist_budget_bytes is None or not self.max_leaves:
+            return demand
+        working = self.histogram_bytes(retained_levels=0)
+        return working + min(demand - working, self.hist_budget_bytes)
+
+    @property
+    def fixed_bytes(self) -> int:
+        cuts = self.num_features * self.max_bin * 4
+        return self.hist_bytes + cuts
+
+    def matrix_device_bytes(self, logical_bytes: int) -> int:
+        """Device/wire bytes of ``logical_bytes`` of uint8 bin symbols under
+        the configured codec (identity at the default 8 bits/symbol)."""
+        return (logical_bytes * self.page_codec_bits + 7) // 8
+
+    def ellpack_bytes(self, n_rows: int) -> int:
+        # uint8 bins, packed to page_codec_bits per symbol on device
+        return self.matrix_device_bytes(n_rows * self.num_features)
+
+    @property
+    def page_wire_bytes(self) -> int:
+        """One streamed page's device/PCIe footprint (packed under the codec)."""
+        return self.matrix_device_bytes(self.page_bytes)
+
+    def in_core_bytes(self, n_rows: int) -> int:
+        return self.fixed_bytes + self.ellpack_bytes(n_rows) + n_rows * (
+            self.row_state_bytes + 8  # + margins & labels resident
+        )
+
+    def out_of_core_bytes(self, n_rows: int) -> int:
+        return (
+            self.fixed_bytes
+            + 2 * self.page_wire_bytes  # double-buffered page streaming
+            + n_rows * self.row_state_bytes
+        )
+
+    def sampled_bytes(self, n_rows: int, f: float) -> int:
+        kept = int(n_rows * f)
+        return (
+            self.fixed_bytes
+            + 2 * self.page_wire_bytes
+            + self.ellpack_bytes(kept)  # compacted page (Alg. 7)
+            + kept * self.row_state_bytes
+        )
+
+    # ----- closed-form max rows per mode (Table 1) -----
+    # integer bit math (x8) keeps the closed forms exact for fractional
+    # per-row matrix bytes; at the default 8 bits/symbol every formula
+    # reduces to the pre-codec integer result
+    def max_rows_in_core(self) -> int:
+        per_row_bits = self.num_features * self.page_codec_bits + (self.row_state_bytes + 8) * 8
+        return max(0, (self.hbm_bytes - self.fixed_bytes) * 8 // per_row_bits)
+
+    def max_rows_out_of_core(self) -> int:
+        per_row = self.row_state_bytes
+        budget = self.hbm_bytes - self.fixed_bytes - 2 * self.page_wire_bytes
+        return max(0, budget // per_row)
+
+    def max_rows_sampled(self, f: float) -> int:
+        per_row_bits = f * (self.num_features * self.page_codec_bits + self.row_state_bytes * 8)
+        budget = self.hbm_bytes - self.fixed_bytes - 2 * self.page_wire_bytes
+        return max(0, int(budget * 8 / per_row_bits))

@@ -1,0 +1,33 @@
+"""Argument checks shared by the kernel wrappers: a CUDA kernel reads raw
+pointers, so every tensor is validated before its address is taken."""
+from __future__ import annotations
+
+import torch
+
+
+def require(t: torch.Tensor, name: str, dtypes: tuple, shape: tuple, device) -> None:
+    """Raise unless ``t`` lies on ``device``, has one of ``dtypes``, matches
+    ``shape`` (None = any extent) and is contiguous."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
+    if t.dim() != len(shape) or any(
+        want is not None and got != want for got, want in zip(t.shape, shape)
+    ):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def require_cuda(t: torch.Tensor, what: str) -> None:
+    if not t.is_cuda:
+        raise ValueError(
+            f"{what} launches a CUDA kernel and takes CUDA tensors only; "
+            f"got a tensor on {t.device} (use repro_torch.kernels.ops, which "
+            "runs the plain version for CPU tensors)"
+        )
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

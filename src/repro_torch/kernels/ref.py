@@ -1,0 +1,130 @@
+"""Plain PyTorch versions of the three CUDA kernels (and single-tree predict).
+
+These are the semantics ground truth of `repro_torch.kernels`: each CUDA
+kernel must agree with the function here on the same inputs (partition and
+forest bit for bit, histograms to f32 summation order). They are the path a
+CPU tensor takes through `kernels.ops`, and the yardstick `chip_smoke.py`
+holds each kernel against on the card. Counterparts of `repro.kernels.ref`.
+
+Conventions shared with the kernels:
+  * bins are ``(n_rows, m)`` uint8 or int32; ``MISSING_BIN`` (255) is missing
+    and falls in no histogram bin;
+  * a negative position matches no node (inactive / padding rows);
+  * node-attribute lookups clamp the node id into ``[0, n_nodes)``, as the
+    reference's gathers do.
+"""
+from __future__ import annotations
+
+import torch
+
+MISSING_BIN = 255
+
+# rows per chunk of the scatter in `build_histogram_nodes`: bounds the
+# (rows, m) int64 index temporaries at full width (1M x 500 would be 4 GB)
+_HIST_ROW_CHUNK = 1 << 16
+
+
+def row_slots(positions: torch.Tensor, build_nodes: torch.Tensor) -> torch.Tensor:
+    """Build slot of every row: the first ``s`` with ``build_nodes[s] ==
+    positions[r]``, or -1 when the row's node is not in the build set."""
+    hit = positions.to(torch.int32)[:, None] == build_nodes.to(torch.int32)[None, :]
+    if hit.shape[1] == 0:
+        return torch.full_like(positions, -1, dtype=torch.int32)
+    slot = torch.argmax(hit.to(torch.int8), dim=1).to(torch.int32)
+    return torch.where(hit.any(dim=1), slot, torch.full_like(slot, -1))
+
+
+def build_histogram_nodes(
+    bins: torch.Tensor,  # (n_rows, m) uint8 or int32 local bins
+    g: torch.Tensor,  # (n_rows,) f32
+    h: torch.Tensor,  # (n_rows,) f32
+    positions: torch.Tensor,  # (n_rows,) int32 global node ids; < 0 = inactive
+    build_nodes: torch.Tensor,  # (S,) int32 global build-node ids, all >= 0
+    n_bins: int,
+) -> torch.Tensor:
+    """``out[s, f, b] = (sum g, sum h)`` over rows at node ``build_nodes[s]``
+    whose bin of feature f is ``b != MISSING_BIN``; shape (S, m, n_bins, 2)."""
+    n_rows, m = bins.shape
+    n_slots = build_nodes.shape[0]
+    slot = row_slots(positions, build_nodes).to(torch.int64)
+    out = torch.zeros(n_slots * m * n_bins * 2, dtype=torch.float32, device=bins.device)
+    feat = torch.arange(m, device=bins.device, dtype=torch.int64)[None, :] * n_bins
+    for lo in range(0, n_rows, _HIST_ROW_CHUNK):
+        hi = min(lo + _HIST_ROW_CHUNK, n_rows)
+        b = bins[lo:hi].to(torch.int64)
+        s = slot[lo:hi, None]
+        valid = (b != MISSING_BIN) & (b < n_bins) & (s >= 0)
+        cell = (s * (m * n_bins) + feat + b)[valid] * 2
+        rows = torch.nonzero(valid)[:, 0] + lo
+        out.index_add_(0, cell, g[rows].to(torch.float32))
+        out.index_add_(0, cell + 1, h[rows].to(torch.float32))
+    return out.reshape(n_slots, m, n_bins, 2)
+
+
+def partition_rows(
+    bins: torch.Tensor,  # (n_rows, m) uint8 or int32
+    positions: torch.Tensor,  # (n_rows,) int32; < 0 = retired
+    feature: torch.Tensor,  # (n_nodes,) int32 split feature per node
+    split_bin: torch.Tensor,  # (n_nodes,) int32 (go left iff bin <= split_bin)
+    default_left: torch.Tensor,  # (n_nodes,) bool missing direction
+    is_leaf: torch.Tensor,  # (n_nodes,) bool
+) -> torch.Tensor:
+    """Rows move to child ``2p+1`` (left) or ``2p+2`` (right); rows at a leaf
+    keep their position; inactive rows stay -1."""
+    pos = positions.to(torch.int32)
+    active = pos >= 0
+    safe = torch.where(active, pos, torch.zeros_like(pos)).clamp_(max=feature.shape[0] - 1)
+    safe = safe.to(torch.int64)
+    f_idx = feature[safe].to(torch.int64).clamp_(0, bins.shape[1] - 1)
+    bval = torch.gather(bins, 1, f_idx[:, None])[:, 0].to(torch.int32)
+    go_left = torch.where(bval == MISSING_BIN, default_left[safe], bval <= split_bin[safe])
+    child = 2 * pos + 1 + (~go_left).to(torch.int32)
+    moved = torch.where(is_leaf[safe], pos, child)
+    return torch.where(active, moved, torch.full_like(pos, -1))
+
+
+def _leaf_positions(bins, feature, split_bin, default_left, is_leaf, max_depth):
+    """Walk one complete-layout tree ``max_depth`` steps; returns node ids."""
+    pos = torch.zeros(bins.shape[0], dtype=torch.int64, device=bins.device)
+    for _ in range(max_depth):
+        f_idx = feature[pos].to(torch.int64).clamp_(0, bins.shape[1] - 1)
+        bval = torch.gather(bins, 1, f_idx[:, None])[:, 0].to(torch.int32)
+        go_left = torch.where(bval == MISSING_BIN, default_left[pos], bval <= split_bin[pos])
+        child = 2 * pos + 1 + (~go_left).to(torch.int64)
+        pos = torch.where(is_leaf[pos], pos, child)
+    return pos
+
+
+def predict_bins(
+    bins: torch.Tensor,  # (n_rows, m)
+    feature: torch.Tensor,  # (n_nodes,) int32
+    split_bin: torch.Tensor,  # (n_nodes,) int32
+    default_left: torch.Tensor,  # (n_nodes,) bool
+    is_leaf: torch.Tensor,  # (n_nodes,) bool
+    leaf_value: torch.Tensor,  # (n_nodes,) f32
+    max_depth: int,
+) -> torch.Tensor:
+    """Leaf value of every row under one tree."""
+    pos = _leaf_positions(bins, feature, split_bin, default_left, is_leaf, max_depth)
+    return leaf_value[pos]
+
+
+def predict_forest_bins(
+    bins: torch.Tensor,  # (n_rows, m)
+    feature: torch.Tensor,  # (T, n_nodes) int32
+    split_bin: torch.Tensor,  # (T, n_nodes) int32
+    default_left: torch.Tensor,  # (T, n_nodes) bool
+    is_leaf: torch.Tensor,  # (T, n_nodes) bool
+    leaf_value: torch.Tensor,  # (T, n_nodes) f32, PRE-SCALED by the learning rate
+    max_depth: int,
+    margin_in: torch.Tensor,  # (n_rows,) f32
+) -> torch.Tensor:
+    """``margin_in + sum_t leaf_t(row)``, added tree by tree in forest order
+    as pure f32 adds (the leaf table arrives pre-scaled, see `ops`)."""
+    margin = margin_in.to(torch.float32)
+    for t in range(feature.shape[0]):
+        margin = margin + predict_bins(
+            bins, feature[t], split_bin[t], default_left[t], is_leaf[t],
+            leaf_value[t], max_depth,
+        )
+    return margin

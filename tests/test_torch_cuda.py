@@ -1,0 +1,119 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test skips without a CUDA device (the kernels have no
+CPU mode). This file imports neither JAX nor the reference, so it also runs
+on a GPU machine without JAX:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+
+Partition and forest must equal the plain versions bit for bit; the
+histogram is allclose(rtol=1e-5, atol=1e-5) (the plain version sums f32 in
+another order) and equal to itself across runs (fixed-point accumulation).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import forest as k_forest
+from repro_torch.kernels import histogram as k_hist
+from repro_torch.kernels import partition as k_part
+from repro_torch.kernels import ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _bins(rng, n, m, n_bins, dtype):
+    bins = rng.integers(0, n_bins, (n, m))
+    bins[rng.random((n, m)) < 0.05] = 255
+    return torch.from_numpy(bins.astype(dtype))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
+@pytest.mark.parametrize("n,m,n_bins,n_nodes,n_build", [
+    (3000, 13, 64, 9, 4), (1, 1, 1, 1, 1), (5000, 7, 256, 300, 120), (777, 40, 255, 3, 3),
+])
+def test_histogram_kernel_matches_plain(dev, dtype, n, m, n_bins, n_nodes, n_build):
+    rng = np.random.default_rng(n + m)
+    bins = _bins(rng, n, m, n_bins, dtype)
+    g = torch.from_numpy(rng.normal(size=n).astype(np.float32) * 50)
+    h = torch.from_numpy(rng.random(n).astype(np.float32))
+    pos = torch.from_numpy(rng.integers(-1, n_nodes, n).astype(np.int32))
+    nodes = torch.from_numpy(np.sort(rng.choice(n_nodes, n_build, replace=False)).astype(np.int32))
+    args = (bins, g, h, pos, nodes)
+    want = ref.build_histogram_nodes(*args, n_bins)
+    got = k_hist.build_histogram_nodes(*(a.to(dev) for a in args), n_bins)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    again = k_hist.build_histogram_nodes(*(a.to(dev) for a in args), n_bins)
+    assert torch.equal(got, again)
+
+
+def test_histogram_kernel_empty_build_set_and_rows(dev):
+    bins = torch.zeros((0, 3), dtype=torch.uint8, device=dev)
+    empty_f = torch.zeros(0, device=dev)
+    empty_i = torch.zeros(0, dtype=torch.int32, device=dev)
+    nodes = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    out = k_hist.build_histogram_nodes(bins, empty_f, empty_f, empty_i, nodes, 8)
+    assert out.shape == (2, 3, 8, 2) and not out.any()
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
+def test_partition_kernel_matches_plain(dev, dtype):
+    rng = np.random.default_rng(1)
+    n, m, n_nodes = 4099, 11, 31
+    bins = _bins(rng, n, m, 32, dtype)
+    pos = torch.from_numpy(rng.integers(-1, 15, n).astype(np.int32))
+    tree = (
+        torch.from_numpy(rng.integers(0, m, n_nodes).astype(np.int32)),
+        torch.from_numpy(rng.integers(0, 32, n_nodes).astype(np.int32)),
+        torch.from_numpy(rng.random(n_nodes) < 0.5),
+        torch.from_numpy(rng.random(n_nodes) < 0.3),
+    )
+    got = k_part.partition_rows(bins.to(dev), pos.to(dev), *(t.to(dev) for t in tree))
+    assert torch.equal(got.cpu(), ref.partition_rows(bins, pos, *tree))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
+def test_forest_kernel_matches_plain_bitwise(dev, dtype):
+    rng = np.random.default_rng(2)
+    n, m, n_trees, depth = 2500, 9, 6, 5
+    n_total = 2 ** (depth + 1) - 1
+    bins = _bins(rng, n, m, 32, dtype)
+    leaf = rng.random((n_trees, n_total)) < 0.3
+    leaf[:, 2**depth - 1:] = True
+    forest = (
+        torch.from_numpy(rng.integers(0, m, (n_trees, n_total)).astype(np.int32)),
+        torch.from_numpy(rng.integers(0, 32, (n_trees, n_total)).astype(np.int32)),
+        torch.from_numpy(rng.random((n_trees, n_total)) < 0.5),
+        torch.from_numpy(leaf),
+        torch.from_numpy(rng.normal(size=(n_trees, n_total)).astype(np.float32)),
+    )
+    margin_in = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    got = k_forest.predict_forest(
+        bins.to(dev), *(t.to(dev) for t in forest), depth, margin_in.to(dev)
+    )
+    assert torch.equal(got.cpu(), ref.predict_forest_bins(bins, *forest, depth, margin_in))
+
+
+def test_wrappers_reject_bad_arguments(dev):
+    bins = torch.zeros((4, 2), dtype=torch.uint8, device=dev)
+    pos = torch.zeros(4, dtype=torch.int32, device=dev)
+    nodes = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="dtype"):
+        k_hist.build_histogram_nodes(bins, torch.zeros(4, device=dev).double(),
+                                     torch.zeros(4, device=dev), pos, nodes, 8)
+    with pytest.raises(ValueError, match="shape"):
+        k_hist.build_histogram_nodes(bins, torch.zeros(3, device=dev),
+                                     torch.zeros(4, device=dev), pos, nodes, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        k_part.partition_rows(
+            torch.zeros((2, 4), dtype=torch.uint8, device=dev).t(), pos,
+            *(torch.zeros(3, dtype=t, device=dev) for t in (torch.int32, torch.int32)),
+            *(torch.zeros(3, dtype=torch.bool, device=dev) for _ in range(2)),
+        )
