@@ -8,20 +8,41 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, each of which fails the run on error:
   1. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-     sm_90a) and prints the build time and the ptxas resource report;
-  2. drives the main path: ``GradientBooster(device="cuda")`` at the width
-     of ``configs/xgb_paper.py`` (500 features, max_bin 256, depth 8,
-     lr 0.1, binary:logistic, no sampling) fits 10 trees with a 100k-row
-     eval set, then predicts the eval rows; every kernel's launch count is
-     zeroed before and read after, and each must be > 0;
+     sm_90a, one process per source) and prints the build time and the
+     ptxas resource report;
+  2. drives the in-core path at the width of ``configs/xgb_paper.py`` (500
+     features, max_bin 256, depth 8, lr 0.1, binary:logistic, no sampling):
+     the host quantile sketch, binning on the card (`ArrayDMatrix`), a
+     10-tree ``GradientBooster(device="cuda")`` fit with a 100k-row eval set,
+     and ``predict_margin`` of the eval rows (binning included); every
+     kernel's launch count is zeroed before and read after, and each must be
+     > 0;
   3. holds each kernel against its plain PyTorch version on the card at the
-     shapes the main path gives it (histogram: all training rows, 500
-     features, 256 bins, 64 build nodes; partition: a trained tree over all
-     training rows; forest: the trained forest over the eval rows), and
-     times kernel, plain version and, where one exists, one PyTorch library
-     call computing the same function;
-  4. fits twice on a 200k-row subset and requires identical trees;
-  5. requires ``predict_margin`` to equal the per-tree loop bit for bit.
+     shapes the paths give it (histogram: all training rows, 500 features,
+     256 bins, 64 build nodes; partition: a trained tree over all training
+     rows; forest: the trained forest over the eval rows; binning: one
+     32 MiB page's rows in float32, and the eval rows in float64, also
+     against the host `bin_batch`), and times kernel, plain version and,
+     where one exists, one PyTorch library call computing the same function;
+  4. fits twice in core on a 200k-row subset and requires identical trees;
+  5. requires ``predict_margin`` to equal the per-tree loop bit for bit;
+  6. drives the out-of-core streaming path at the same width: the training
+     rows, fed as batches to ``IterDMatrix`` (the phase-2 cuts, 32 MiB pages
+     binned on the card and written to disk through `PageStore`), fit 4
+     trees under ``ExecutionPolicy(mode="auto")`` with a memory budget
+     between the byte model's streaming and in-core needs; requires the
+     ``out_of_core`` decision, histogram and partition launches per page,
+     eval AUC within 1e-3 of the in-core fit's after 4 trees, and a peak
+     device memory below the in-core fit's; launch counts are zeroed and
+     read as in phase 2. The fit's device-memory peak above its start is
+     printed beside the byte model's streaming need, broken down by
+     allocation site from the CUDA allocator's trace. Then one pass of the
+     page stream holds the histogram and partition kernels against their
+     plain versions on every staged page, and the page-summed histogram
+     against the plain histogram of the concatenated pages;
+  7. fits twice more by streaming (3 trees, a 200k-row subset, the page
+     cache reopened through ``PagedDMatrix``, staging depth 2) and requires
+     identical trees.
 
 It prints a JSON line of per-kernel numbers, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. It imports nothing
@@ -33,12 +54,17 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+FP64_OPS_PER_S = 34e12  # H100 SXM f64 outside the tensor cores
+PAGE_BYTES = 32 * 1024 * 1024
+AUC_TOLERANCE = 1e-3  # streaming vs in-core eval AUC after 4 trees
 
 
 def _time_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -57,9 +83,9 @@ def _time_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def _bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -67,6 +93,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1_000_000, help="training rows")
     ap.add_argument("--trees", type=int, default=10)
+    ap.add_argument("--stream-trees", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -82,17 +109,28 @@ def main(argv=None) -> int:
     import numpy as np
 
     from repro_torch.core.booster import GradientBooster
-    from repro_torch.core.ellpack import bin_batch
+    from repro_torch.core.ellpack import Binner
     from repro_torch.core.objectives import auc
-    from repro_torch.data.dmatrix import ArrayDMatrix
+    from repro_torch.core.policy import ExecutionPolicy
+    from repro_torch.core.quantile import QuantileSketch
+    from repro_torch.data.dmatrix import ArrayDMatrix, IterDMatrix, PagedDMatrix
+    from repro_torch.data.pages import _decode
     from repro_torch.data.synthetic import make_classification
-    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ellpack_bin as k_bin
     from repro_torch.kernels import forest as k_forest
     from repro_torch.kernels import histogram as k_hist
     from repro_torch.kernels import partition as k_part
 
     dev = torch.device("cuda", 0)
-    kernels = {"histogram": k_hist, "partition": k_part, "forest": k_forest}
+    kernels = {"histogram": k_hist, "partition": k_part, "forest": k_forest, "bin_values": k_bin}
+
+    def zero_counts():
+        for mod in kernels.values():
+            mod.launches = 0
+
+    def read_counts():
+        return {name: mod.launches for name, mod in kernels.items()}
 
     # 1. build ---------------------------------------------------------------
     _build.build_all()
@@ -102,7 +140,7 @@ def main(argv=None) -> int:
             if "registers" in line or "Compiling entry" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    # 2. main path -----------------------------------------------------------
+    # 2. in-core path --------------------------------------------------------
     t0 = time.perf_counter()
     X, y = make_classification(args.rows, 500, seed=args.seed)
     Xe, ye = make_classification(100_000, 500, seed=args.seed, batch=1)
@@ -112,43 +150,323 @@ def main(argv=None) -> int:
         objective="binary:logistic",
     )
     t0 = time.perf_counter()
-    dm = ArrayDMatrix(X, y, max_bin=256)
-    quantise_s = time.perf_counter() - t0
-    for mod in kernels.values():
-        mod.launches = 0
+    sketch = QuantileSketch(500, max_bin=255)
+    sketch.update(X)
+    cuts = sketch.finalize()
+    sketch_s = time.perf_counter() - t0
+    zero_counts()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dm = ArrayDMatrix(X, y, max_bin=256, cuts=cuts, device=dev)
+    torch.cuda.synchronize()
+    binning_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    in_core_base = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
     booster = GradientBooster(device="cuda", **params).fit(dm, eval_set=(Xe, ye))
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
+    in_core_peak = torch.cuda.max_memory_allocated(dev)
     t0 = time.perf_counter()
     margin = booster.predict_margin(Xe)
     predict_ms = (time.perf_counter() - t0) * 1e3
-    launches = {name: mod.launches for name, mod in kernels.items()}
+    in_core_launches = read_counts()
     eval_auc = auc(ye, margin)
     n_trees = len(booster.trees)
     # the boosting loop alone: eval_history's clock starts after the eval
-    # set is binned on the host
+    # set is binned
     loop_s = booster.eval_history[-1].elapsed_s
     print(
-        f"main path: decision={booster.decision_.mode} trees={n_trees} "
-        f"quantise={quantise_s:.3f} s (host sketch + binning) fit={fit_s:.3f} s "
-        f"boosting_loop={loop_s:.3f} s per_tree={loop_s / n_trees:.4f} s "
-        f"predict={predict_ms:.3f} ms (100000 rows, incl. host binning) eval_auc={eval_auc:.6f}"
+        f"in-core path: decision={booster.decision_.mode} trees={n_trees} "
+        f"sketch={sketch_s:.3f} s (host) binning={binning_s:.3f} s (card, incl. copies) "
+        f"fit={fit_s:.3f} s boosting_loop={loop_s:.3f} s per_tree={loop_s / n_trees:.4f} s "
+        f"predict={predict_ms:.3f} ms (100000 rows, binning on the card included) "
+        f"eval_auc={eval_auc:.6f} peak_device_bytes={in_core_peak} (at start {in_core_base})"
     )
-    print(f"main path launches: {json.dumps(launches)}")
+    print(f"in-core path launches: {json.dumps(in_core_launches)}")
     if booster.decision_.mode != "in_core":
-        raise SystemExit("main path did not train in core")
-    if not all(v > 0 for v in launches.values()):
-        raise SystemExit(f"a kernel of the main path was never launched: {launches}")
+        raise SystemExit("the in-core path did not train in core")
+    if not all(v > 0 for v in in_core_launches.values()):
+        raise SystemExit(f"a kernel of the in-core path was never launched: {in_core_launches}")
     if not (np.all(np.isfinite(margin)) and margin.shape == (100_000,) and eval_auc > 0.7):
-        raise SystemExit(f"main path output wrong: shape {margin.shape}, auc {eval_auc}")
+        raise SystemExit(f"in-core path output wrong: shape {margin.shape}, auc {eval_auc}")
 
-    # 3. kernels against their plain versions, at main-path shapes ------------
+    # 3. kernels against their plain versions, at the paths' shapes ----------
+    results = kernel_checks(args.seed, dev, dm, booster, X, Xe)
+    del dm
+
+    # 4. determinism: two fits on a 200k-row subset grow identical trees ------
+    sub = min(200_000, args.rows)
+    fits = [
+        GradientBooster(device="cuda", **params).fit(X[:sub], y[:sub], cuts=booster.cuts)
+        for _ in range(2)
+    ]
+    for a, b in zip(fits[0].trees, fits[1].trees):
+        if not all(torch.equal(u, v) for u, v in zip(a, b)):
+            raise SystemExit("two fits on the same data grew different trees")
+    print(f"determinism: two in-core fits on {sub} rows grew {len(fits[0].trees)} identical trees")
+    del fits
+
+    # 5. fused predict equals the per-tree loop bit for bit -------------------
+    forest = booster.packed_forest()
+    eval_bins = Binner(booster.cuts, dev).to_device(Xe)
+    fused = forest.predict_margin_bins(eval_bins)
+    per_tree = forest.predict_margin_per_tree(eval_bins)
+    if not (torch.equal(fused, per_tree) and np.array_equal(margin, fused.cpu().numpy())):
+        raise SystemExit("fused forest predict differs from the per-tree loop")
+    print("predict: fused forest == per-tree loop (bitwise)")
+    del forest, eval_bins, fused, per_tree
+
+    # 6. out-of-core streaming path ------------------------------------------
+    batch_rows = 100_000
+    batches = [(X[i : i + batch_rows], y[i : i + batch_rows]) for i in range(0, len(X), batch_rows)]
+    n_stream = min(args.stream_trees, args.trees)
+    stream_params = dict(params, n_estimators=n_stream)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pages_") as cache:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sdm = IterDMatrix(batches, max_bin=256, cuts=booster.cuts, cache_dir=cache,
+                          page_bytes=PAGE_BYTES, device=dev)
+        pages_s = time.perf_counter() - t0
+        page_bin_launches = k_bin.launches
+        model = ExecutionPolicy().memory_model(sdm, booster.params)
+        need_stream, need_core = model.out_of_core_bytes(sdm.n_rows), model.in_core_bytes(sdm.n_rows)
+        budget = (need_stream + need_core) // 2
+        policy = ExecutionPolicy(mode="auto", memory_budget_bytes=budget)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        stream_base = torch.cuda.memory_allocated(dev)
+        torch.cuda.memory._record_memory_history(enabled="all", context="alloc", stacks="python")
+        t0 = time.perf_counter()
+        sb = GradientBooster(device="cuda", policy=policy, **stream_params)
+        sb.fit(sdm, eval_set=(Xe, ye))
+        torch.cuda.synchronize()
+        stream_fit_s = time.perf_counter() - t0
+        stream_peak = torch.cuda.max_memory_allocated(dev)
+        trace = torch.cuda.memory._snapshot()["device_traces"][dev.index]
+        torch.cuda.memory._record_memory_history(enabled=None)
+        traced_peak, peak_sites = _peak_breakdown(trace)
+        del trace
+        stream_margin = sb.predict_margin(Xe)
+        stream_launches = read_counts()
+        st = sb.stats
+        n_pages = sdm.n_pages
+        stream_loop_s = sb.eval_history[-1].elapsed_s
+        stream_auc = sb.eval_history[n_stream - 1].value
+        core_auc = booster.eval_history[n_stream - 1].value
+        print(
+            f"streaming path: decision={sb.decision_.mode} ({sb.decision_.reason}) "
+            f"pages={n_pages} page_creation={pages_s:.3f} s trees={len(sb.trees)} "
+            f"fit={stream_fit_s:.3f} s per_tree={stream_loop_s / len(sb.trees):.4f} s "
+            f"h2d_GB={st.host_to_device_bytes / 1e9:.6f} disk_read_GB={st.disk_read_bytes / 1e9:.6f} "
+            f"overlap_ratio={st.overlap_ratio:.6f} fetch_s={st.stream_fetch_seconds:.6f} "
+            f"stage_s={st.stream_stage_seconds:.6f} compute_s={st.stream_compute_seconds:.6f} "
+            f"wall_s={st.stream_wall_seconds:.6f} io_retries={st.io_retries}"
+        )
+        print(
+            f"streaming memory: budget_bytes={budget} (byte model: streaming {need_stream}, "
+            f"in-core {need_core}) peak_device_bytes={stream_peak} (at start {stream_base}) "
+            f"in_core_peak_device_bytes={in_core_peak}"
+        )
+        print(
+            f"streaming memory: peak above start {stream_peak - stream_base} B against the "
+            f"byte model's streaming need {need_stream} B; the allocator trace's peak "
+            f"{traced_peak} B holds:"
+        )
+        small = [r for r in peak_sites if r[1] < 1 << 20]
+        for site, nbytes, blocks in peak_sites[: len(peak_sites) - len(small)]:
+            print(f"  {nbytes} B in {blocks} block(s) from {site}")
+        print(f"  {sum(r[1] for r in small)} B in {sum(r[2] for r in small)} block(s) "
+              f"from {len(small)} sites of under 1 MiB each")
+        print(
+            f"streaming eval_auc after {n_stream} trees={stream_auc:.6f} in-core={core_auc:.6f} "
+            f"|diff|={abs(stream_auc - core_auc):.6f}"
+        )
+        print(f"streaming path launches: {json.dumps(stream_launches)} "
+              f"(bin_values {page_bin_launches} of them creating the pages)")
+        if sb.decision_.mode != "out_of_core":
+            raise SystemExit(f"the streaming path decided {sb.decision_.mode!r}")
+        per_pass = n_pages * stream_params["max_depth"] * len(sb.trees)
+        if not (stream_launches["histogram"] == per_pass == stream_launches["partition"]):
+            raise SystemExit(f"histogram/partition not launched once per page and level: "
+                             f"{stream_launches}, expected {per_pass}")
+        if not all(v > 0 for v in stream_launches.values()):
+            raise SystemExit(f"a kernel of the streaming path was never launched: "
+                             f"{stream_launches}")
+        if abs(stream_auc - core_auc) > AUC_TOLERANCE:
+            raise SystemExit(f"streaming AUC {stream_auc} vs in-core {core_auc}")
+        if not stream_peak < in_core_peak:
+            raise SystemExit(f"streaming peak {stream_peak} not below in-core {in_core_peak}")
+        if not (np.all(np.isfinite(stream_margin)) and stream_margin.shape == (100_000,)):
+            raise SystemExit("streaming path output wrong")
+        page_kernel_checks(args.seed, dev, sdm, sb.trees[0])
+        del sb, sdm
+        # where one page fetch goes (host clock, median of 5): the read, the
+        # manifest's CRC32 check and the decode the prefetch thread does
+        spans = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            blob = (Path(cache) / "page_000000.bin").read_bytes()
+            t1 = time.perf_counter()
+            zlib.crc32(blob)
+            t2 = time.perf_counter()
+            _decode(blob)
+            spans.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
+        read_s, crc_s, decode_s = np.median(np.asarray(spans), axis=0)
+        print(f"page fetch (page 0, {len(blob)} bytes): read={read_s * 1e3:.3f} ms "
+              f"crc32={crc_s * 1e3:.3f} ms decode={decode_s * 1e3:.3f} ms")
+
+    # 7. determinism of the streaming path ------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pages_") as cache:
+        sub_batches = [(X[i : i + batch_rows], y[i : i + batch_rows]) for i in range(0, sub, batch_rows)]
+        IterDMatrix(sub_batches, max_bin=256, cuts=booster.cuts, cache_dir=cache,
+                    page_bytes=PAGE_BYTES, device=dev)
+        det_policy = ExecutionPolicy(mode="out_of_core", staging_depth=2)
+        det = [
+            GradientBooster(device="cuda", policy=det_policy, **dict(params, n_estimators=3))
+            .fit(PagedDMatrix(cache))
+            for _ in range(2)
+        ]
+    for a, b in zip(det[0].trees, det[1].trees):
+        if not all(torch.equal(u, v) for u, v in zip(a, b)):
+            raise SystemExit("two streaming fits on the same pages grew different trees")
+    if not torch.equal(det[0].margins_, det[1].margins_):
+        raise SystemExit("two streaming fits on the same pages gave different margins")
+    print(f"determinism: two streaming fits on {sub} rows ({det[0].pages.n_pages} pages, "
+          f"staging_depth=2) grew {len(det[0].trees)} identical trees")
+
+    # launches: both paths' runs, each counted from zero (per path above)
+    for r in results:
+        counter = r.pop("counter")
+        r["launches"] = in_core_launches[counter] + stream_launches[counter]
+    print(json.dumps({"kernels": results}))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    print(smi.stdout.strip().splitlines()[0])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
+    }}))
+    return 0
+
+
+def _peak_breakdown(trace: list[dict]) -> tuple[int, list[tuple[str, int, int]]]:
+    """Replays a CUDA allocator trace (``torch.cuda.memory._snapshot()``):
+    the most bytes its own allocations held at once, and what was live at
+    that moment as (allocation site, bytes, blocks), largest first. A site
+    is the innermost frame in ``repro_torch``."""
+    live: dict[int, tuple[int, str]] = {}
+    total = peak = 0
+    at_peak: dict[int, tuple[int, str]] = {}
+    for ev in trace:
+        if ev["action"] == "alloc":
+            site = next(
+                (f"{f['filename'].split('repro_torch/')[-1]}:{f['line']} {f['name']}"
+                 for f in ev.get("frames", ()) if "repro_torch" in f["filename"]),
+                "outside repro_torch",
+            )
+            live[ev["addr"]] = (ev["size"], site)
+            total += ev["size"]
+            if total > peak:
+                peak, at_peak = total, dict(live)
+        elif ev["action"] in ("free_requested", "free_completed") and ev["addr"] in live:
+            total -= live.pop(ev["addr"])[0]
+    sites: dict[str, tuple[int, int]] = {}
+    for size, site in at_peak.values():
+        nbytes, blocks = sites.get(site, (0, 0))
+        sites[site] = (nbytes + size, blocks + 1)
+    return peak, sorted(((s, b, c) for s, (b, c) in sites.items()), key=lambda r: -r[1])
+
+
+def page_kernel_checks(seed: int, dev, sdm, tree) -> None:
+    """Phase 6: the histogram and partition kernels at the streaming path's
+    shape, on pages as the pinned ring and the side stream stage them,
+    against their plain versions; then the page-summed histogram of one
+    whole pass against the plain histogram of the concatenated pages.
+    Restores the launch counts."""
+    import torch
+
+    from repro_torch.kernels import histogram as k_hist
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import partition as k_part
+
+    n = sdm.n_rows
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    g = torch.randn(n, generator=gen, device=dev)
+    h = torch.rand(n, generator=gen, device=dev)
+    pick = torch.randint(0, 2, (64,), generator=gen, device=dev, dtype=torch.int32)
+    nodes = 127 + 2 * torch.arange(64, device=dev, dtype=torch.int32) + pick
+    positions = {}  # level 7 of a depth-8 tree, 10% inactive, as in phase 3
+    for i, (_, nr) in enumerate(sdm.page_set().page_extents):
+        pos = torch.randint(127, 255, (nr,), generator=gen, device=dev, dtype=torch.int32)
+        pos[torch.rand(nr, generator=gen, device=dev) < 0.1] = -1
+        positions[i] = pos
+    part_args = (tree.feature, tree.split_bin, tree.default_left, tree.is_leaf)
+    saved = k_hist.launches, k_part.launches
+    hist_err, pages, page_ms = 0.0, {}, None
+    for sp in sdm.page_set().stream(device=dev, staging_depth=2):
+        ro, nr = sp.host.row_offset, sp.host.n_rows
+        args = (sp.device, g[ro : ro + nr], h[ro : ro + nr], positions[sp.index], nodes, 255)
+        got, want = k_hist.build_histogram_nodes(*args), ref.build_histogram_nodes(*args)
+        err = (got - want).abs().max().item()
+        if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+            raise SystemExit(f"histogram kernel disagrees with its plain version on "
+                             f"streamed page {sp.index}: max err {err}")
+        hist_err = max(hist_err, err)
+        level_pos = torch.zeros(nr, dtype=torch.int32, device=dev)
+        for _ in range(6):  # rows at level 6 of the first tree
+            level_pos = ref.partition_rows(sp.device, level_pos, *part_args)
+        level_pos[torch.rand(nr, generator=gen, device=dev) < 0.05] = -1
+        if not torch.equal(k_part.partition_rows(sp.device, level_pos, *part_args),
+                           ref.partition_rows(sp.device, level_pos, *part_args)):
+            raise SystemExit(f"partition kernel disagrees with its plain version on "
+                             f"streamed page {sp.index}")
+        if page_ms is None:
+            page_ms = (_time_ms(lambda: k_hist.build_histogram_nodes(*args), 5),
+                       _time_ms(lambda: k_part.partition_rows(sp.device, level_pos, *part_args), 20))
+        pages[sp.index] = sp.device
+    order = sorted(pages)
+    paged = ops.build_histogram_paged(
+        sdm.page_set().stream(device=dev, staging_depth=2), g, h, positions, 0, 64, 255,
+        build_nodes=nodes,
+    )
+    whole = ref.build_histogram_nodes(
+        torch.cat([pages[i] for i in order]), g, h, torch.cat([positions[i] for i in order]),
+        nodes, 255,
+    )
+    sum_err = (paged - whole).abs().max().item()
+    if not torch.allclose(paged, whole, rtol=1e-5, atol=1e-5):
+        raise SystemExit(f"page-summed histogram disagrees with the plain histogram of "
+                         f"the concatenated pages: max err {sum_err}")
+    k_hist.launches, k_part.launches = saved
+    print(
+        f"streaming kernels on {len(order)} staged pages ({pages[0].shape[0]} x "
+        f"{pages[0].shape[1]} uint8 each): histogram max_abs_err={hist_err:.3g} "
+        f"(rtol=atol=1e-5), partition equal; page-summed histogram vs plain over the "
+        f"concatenated pages max_abs_err={sum_err:.3g}; at page 0 histogram "
+        f"{page_ms[0]:.4f} ms, partition {page_ms[1]:.4f} ms"
+    )
+
+
+def kernel_checks(seed: int, dev, dm, booster, X, Xe) -> list[dict]:
+    """Phase 3: each kernel against its plain version at the paths' shapes,
+    timed beside its bound and a library call; restores the launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.ellpack import Binner, bin_batch, rows_per_page
+    from repro_torch.kernels import ellpack_bin as k_bin
+    from repro_torch.kernels import forest as k_forest
+    from repro_torch.kernels import histogram as k_hist
+    from repro_torch.kernels import partition as k_part
+    from repro_torch.kernels import ref
+
     bins = torch.from_numpy(dm.single_page_bins()).to(dev)
-    eval_bins = torch.from_numpy(bin_batch(Xe, booster.cuts)).to(dev)
+    eval_bins = Binner(booster.cuts, dev).to_device(Xe)
     n, m = bins.shape
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     g = torch.randn(n, generator=gen, device=dev)
     h = torch.rand(n, generator=gen, device=dev)
     # deepest built level of a depth-8 tree: rows spread over level 7's 128
@@ -193,9 +511,8 @@ def main(argv=None) -> int:
     results.append(dict(
         name="build_histogram_nodes", route="cuda",
         source="src/repro_torch/kernels/csrc/histogram.cu",
-        replaces="src/repro/kernels/histogram.py:214",
-        launches=launches["histogram"], max_abs_err=err,
-        ms=_time_ms(hist_k, 5), plain_ms=_time_ms(hist_p, 2),
+        replaces="src/repro/kernels/histogram.py:214", counter="histogram",
+        max_abs_err=err, ms=_time_ms(hist_k, 5), plain_ms=_time_ms(hist_p, 2),
         bound_ms=hb, bound_by=hb_by, library_ms=lib_ms,
     ))
     k_hist.launches = saved
@@ -216,13 +533,14 @@ def main(argv=None) -> int:
     results.append(dict(
         name="partition_rows", route="cuda",
         source="src/repro_torch/kernels/csrc/partition.cu",
-        replaces="src/repro/kernels/partition.py:82",
-        launches=launches["partition"], max_abs_err=0.0,
+        replaces="src/repro/kernels/partition.py:82", counter="partition",
+        max_abs_err=0.0,
         ms=_time_ms(lambda: k_part.partition_rows(bins, level_pos, *part_args), 20),
         plain_ms=_time_ms(lambda: ref.partition_rows(bins, level_pos, *part_args), 5),
         bound_ms=pb, bound_by=pb_by, library_ms=None,
     ))
     k_part.launches = saved
+    del bins, g, h, pos, slot, level_pos
 
     forest = booster.packed_forest()
     scaled = torch.tensor(forest.learning_rate, dtype=torch.float32, device=dev) * forest.leaf_value
@@ -251,49 +569,71 @@ def main(argv=None) -> int:
     results.append(dict(
         name="predict_forest", route="cuda",
         source="src/repro_torch/kernels/csrc/forest.cu",
-        replaces="src/repro/kernels/forest.py:129",
-        launches=launches["forest"], max_abs_err=0.0,
+        replaces="src/repro/kernels/forest.py:129", counter="forest",
+        max_abs_err=0.0,
         ms=_time_ms(lambda: k_forest.predict_forest(eval_bins, *f_args, m_in), 20),
         plain_ms=_time_ms(lambda: ref.predict_forest_bins(eval_bins, *f_args, m_in), 3),
         bound_ms=fb, bound_by=fb_by, library_ms=None,
     ))
     k_forest.launches = saved
+    del eval_bins, m_in
+
+    # binning: one 32 MiB page's rows in f32 (the page-creation shape of the
+    # streaming path), and the eval rows in f64; each against its plain
+    # version and the host numpy binning, bit for bit
+    binner = Binner(booster.cuts, dev)
+    edges, nbf = binner.edges, binner.n_bins
+    width = edges.shape[1]
+    saved = k_bin.launches
+    bin_rows = {}
+    page_rows = min(rows_per_page(m), len(X))
+    for dtype, raw in ((np.float32, X[:page_rows]), (np.float64, Xe)):
+        raw = np.ascontiguousarray(raw, dtype=dtype)
+        rows = raw.shape[0]
+        x = torch.from_numpy(raw).to(dev)
+        got = k_bin.bin_values(x, edges, nbf)
+        want = ref.bin_values(x, edges, nbf)
+        t0 = time.perf_counter()
+        host = bin_batch(raw, booster.cuts)
+        host_s = time.perf_counter() - t0
+        if not (torch.equal(got, want) and np.array_equal(got.cpu().numpy(), host)):
+            raise SystemExit(f"binning kernel disagrees ({dtype.__name__}): plain "
+                             f"{torch.equal(got, want)}, host {np.array_equal(got.cpu().numpy(), host)}")
+        lib_edges = edges if dtype is np.float32 else edges.double()
+        xt = x.t().contiguous()
+        itemsize = raw.itemsize
+        bb, bb_by = _bound(
+            rows * m * (itemsize + 1) + edges.numel() * 4 + m * 4,
+            rows * m * max(1, int(np.ceil(np.log2(width)))),
+            FP32_OPS_PER_S if dtype is np.float32 else FP64_OPS_PER_S,
+        )
+        bin_rows[dtype.__name__] = dict(
+            rows=rows, ms=_time_ms(lambda: k_bin.bin_values(x, edges, nbf), 20),
+            plain_ms=_time_ms(lambda: ref.bin_values(x, edges, nbf), 2),
+            library_ms=_time_ms(lambda: torch.searchsorted(lib_edges, xt, side="left"), 5),
+            bound_ms=bb, bound_by=bb_by, host_numpy_s=host_s,
+        )
+        del x, xt, got, want
+    k_bin.launches = saved
+    f32, f64 = bin_rows["float32"], bin_rows["float64"]
+    print(f"kernel bin_values float64 ({f64['rows']} x {m}): ms={f64['ms']:.4f} "
+          f"plain_ms={f64['plain_ms']:.4f} library_ms={f64['library_ms']:.4f} "
+          f"bound_ms={f64['bound_ms']:.4f} ({f64['bound_by']}) host numpy "
+          f"{f64['host_numpy_s']:.3f} s; float32 host numpy {f32['host_numpy_s']:.3f} s")
+    results.append(dict(
+        name="bin_values", route="cuda",
+        source="src/repro_torch/kernels/csrc/ellpack_bin.cu",
+        replaces="src/repro/kernels/ellpack_bin.py:60", counter="bin_values",
+        max_abs_err=0.0, ms=f32["ms"], plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
+        bound_by=f32["bound_by"], library_ms=f32["library_ms"],
+    ))
     for r in results:
         print(
             f"kernel {r['name']}: max_abs_err={r['max_abs_err']:.3g} ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-            f"library_ms={r['library_ms']} launches={r['launches']}"
+            f"library_ms={r['library_ms']}"
         )
-
-    # 4. determinism: two fits on a 200k-row subset grow identical trees ------
-    sub = min(200_000, args.rows)
-    fits = [
-        GradientBooster(device="cuda", **params).fit(X[:sub], y[:sub], cuts=booster.cuts)
-        for _ in range(2)
-    ]
-    for a, b in zip(fits[0].trees, fits[1].trees):
-        if not all(torch.equal(u, v) for u, v in zip(a, b)):
-            raise SystemExit("two fits on the same data grew different trees")
-    print(f"determinism: two fits on {sub} rows grew {len(fits[0].trees)} identical trees")
-
-    # 5. fused predict equals the per-tree loop bit for bit -------------------
-    fused = forest.predict_margin_bins(eval_bins)
-    per_tree = forest.predict_margin_per_tree(eval_bins)
-    if not (torch.equal(fused, per_tree) and np.array_equal(margin, fused.cpu().numpy())):
-        raise SystemExit("fused forest predict differs from the per-tree loop")
-    print("predict: fused forest == per-tree loop (bitwise)")
-
-    print(json.dumps({"kernels": results}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    print(smi.stdout.strip().splitlines()[0])
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
-    return 0
+    return results
 
 
 if __name__ == "__main__":

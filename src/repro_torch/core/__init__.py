@@ -1,2 +1,3 @@
 """Core of the port: quantisation, objectives, splits, histogram store, tree
-builder, byte model, execution policy and the `GradientBooster` estimator."""
+builders (in-core and over streamed pages), byte model, execution policy and
+the `GradientBooster` estimator."""

@@ -1,17 +1,26 @@
 """GradientBooster: the estimator surface of the port.
 
-Counterpart of `repro.core.booster`. ``fit`` takes raw ``(X, y)`` arrays or
-an `ArrayDMatrix`; the `ExecutionPolicy` decides the mode with the reference's
-Table-1 byte model, and this slice trains the in-core decision (Alg. 1 per
-round): the whole uint8 ELLPACK matrix is staged to the device once, and
-every tree level runs the CUDA histogram and partition kernels. ``predict``
-goes through `PackedForest` and the CUDA forest kernel.
+Counterpart of `repro.core.booster`. ``fit`` takes raw ``(X, y)`` arrays, a
+batch source or a DMatrix (`ArrayDMatrix`, `IterDMatrix`, `PagedDMatrix`);
+the `ExecutionPolicy` decides the mode with the reference's Table-1 byte
+model, and the decision lands on ``decision_``:
+
+  in_core      the whole uint8 ELLPACK matrix is staged to the device once,
+               and every tree level runs the CUDA histogram and partition
+               kernels (Alg. 1 per round);
+  out_of_core  the pages stream through `PageStream` (disk -> pinned host ->
+               device), one pass per tree level for the histogram and one
+               for the repartition (Alg. 6); the margins are updated from
+               the final row positions, without another pass.
+
+``predict`` bins raw rows on the device (the CUDA binning kernel) and goes
+through `PackedForest` and the CUDA forest kernel.
 
 Everything runs on the CUDA device unless the caller passes
 ``device="cpu"``, which runs the plain PyTorch versions of the kernels on the
-host; asking for CUDA where there is none raises. Out-of-core and sampled
-training, best-first growth and the budgeted histogram store are queued and
-raise `NotImplementedError`.
+host; asking for CUDA where there is none raises. Sampled training (Alg. 7),
+best-first growth and the budgeted histogram store are queued and raise
+`NotImplementedError`.
 
 Checkpoints use the reference's format (``model.npz``, ``booster.json``,
 ``manifest.json`` with CRC32), so a forest saved by `repro` loads here and
@@ -31,13 +40,19 @@ import numpy as np
 import torch
 
 from repro_torch.core import objectives as obj_lib
-from repro_torch.core.ellpack import bin_batch
+from repro_torch.core.ellpack import Binner
 from repro_torch.core.histcache import HistogramStore
 from repro_torch.core.policy import ExecutionDecision, ExecutionPolicy
 from repro_torch.core.quantile import HistogramCuts
 from repro_torch.core.sampling import SamplingConfig, sample
 from repro_torch.core.split import SplitParams
-from repro_torch.core.tree import TreeArrays, TreeParams, grow_tree, predict_tree_bins
+from repro_torch.core.tree import (
+    TreeArrays,
+    TreeBuildResult,
+    TreeParams,
+    grow_tree,
+    predict_tree_bins,
+)
 from repro_torch.data.pages import TransferStats, fsync_dir
 
 Tensor = torch.Tensor
@@ -153,7 +168,8 @@ class EvalRecord:
 
 
 class GradientBooster:
-    """XGBoost-like estimator over the port's tree builder (in-core mode)."""
+    """XGBoost-like estimator over the port's tree builders (in-core and
+    out-of-core streaming)."""
 
     def __init__(
         self,
@@ -179,6 +195,10 @@ class GradientBooster:
         self.stats: TransferStats | None = None
         self.hist_cache = self._make_hist_store()
         self._packed_forest = None
+        # out-of-core state (filled when the decision streams pages)
+        self.pages = None  # PageSet of the last external fit
+        self.margins_: Tensor | None = None  # (n_rows,) f32 on the device
+        self._device_cache = None
 
     def _make_hist_store(self) -> HistogramStore:
         return HistogramStore(
@@ -196,22 +216,74 @@ class GradientBooster:
         verbose: bool = False,
         cuts: HistogramCuts | None = None,
     ) -> "GradientBooster":
-        """Train on raw arrays or an `ArrayDMatrix`; the policy's decision
-        lands on ``self.decision_``."""
+        """Train on raw arrays, a batch source or a DMatrix; the policy's
+        decision lands on ``self.decision_``."""
         from repro_torch.data.dmatrix import as_dmatrix
 
         p = self.params
         self._packed_forest = None
-        dm = as_dmatrix(data, y, max_bin=p.max_bin, cuts=cuts)
+        dm = as_dmatrix(data, y, max_bin=p.max_bin, cuts=cuts, device=self.device)
         decision = self.policy.decide(dm, p)
         self.decision_ = decision
-        if decision.mode != "in_core":
+        if decision.mode == "sampled":
             raise NotImplementedError(
-                f"the policy chose {decision.mode!r} ({decision.reason}); out-of-core "
-                "and sampled training are not ported yet (queued after the in-core slice)"
+                f"the policy chose 'sampled' ({decision.reason}); gradient-based "
+                "sampling (Alg. 7) is not ported yet (ROADMAP queue 1 item 6)"
             )
         self.cuts = dm.cuts
-        return self._fit_in_core(dm, eval_set, eval_metric, verbose)
+        if decision.mode == "in_core":
+            return self._fit_in_core(dm, eval_set, eval_metric, verbose)
+        return self._fit_external(dm, eval_set, eval_metric, verbose)
+
+    def _eval_state(self, eval_set, cuts: HistogramCuts):
+        """(device bins, labels, margins replaying the held trees) of the eval
+        set, or Nones; the rows are binned on the device."""
+        if eval_set is None:
+            return None, None, None
+        p = self.params
+        eval_bins = Binner(cuts, self.device).to_device(eval_set[0])
+        eval_labels = np.asarray(eval_set[1], dtype=np.float32)
+        eval_margin = torch.full(
+            (eval_labels.shape[0],), self.base_margin_, dtype=torch.float32, device=self.device
+        )
+        for tree in self.trees:
+            eval_margin = eval_margin + p.learning_rate * predict_tree_bins(
+                tree, eval_bins, p.max_depth
+            )
+        return eval_bins, eval_labels, eval_margin
+
+    def _boost(self, boost_round, eval_set, cuts, eval_metric, verbose) -> None:
+        """The boosting loop shared by both engines: per round, a tree from
+        ``boost_round()`` (which also updates the training margins), then
+        the checkpoint cadence, eval and early stopping."""
+        p, pol = self.params, self.policy
+        eval_bins, eval_labels, eval_margin = self._eval_state(eval_set, cuts)
+        metric_name = self._metric_name(eval_metric)
+        t0 = time.perf_counter()
+        best_metric, best_iter = None, -1
+        for it in range(p.n_estimators):
+            tree = boost_round()
+            self.trees.append(tree)
+            if pol.checkpoint_every and pol.checkpoint_dir and (it + 1) % pol.checkpoint_every == 0:
+                self.save(pol.checkpoint_dir)
+            if eval_bins is None:
+                continue
+            pred = predict_tree_bins(tree, eval_bins, p.max_depth)
+            eval_margin = eval_margin + p.learning_rate * pred
+            val = self._eval(metric_name, eval_labels, eval_margin)
+            self.eval_history.append(EvalRecord(it, metric_name, val, time.perf_counter() - t0))
+            if verbose:
+                print(f"[{it}] {metric_name}={val:.6f}")
+            better = (
+                best_metric is None
+                or (metric_name in ("auc", "accuracy") and val > best_metric)
+                or (metric_name not in ("auc", "accuracy") and val < best_metric)
+            )
+            if better:
+                best_metric, best_iter = val, it
+            elif p.early_stopping_rounds and it - best_iter >= p.early_stopping_rounds:
+                break
+        self.best_iteration_ = best_iter if best_iter >= 0 else len(self.trees) - 1
 
     def _fit_in_core(self, dm, eval_set, eval_metric, verbose) -> "GradientBooster":
         p, dev = self.params, self.device
@@ -237,50 +309,79 @@ class GradientBooster:
         for tree in self.trees:
             margin = margin + p.learning_rate * predict_tree_bins(tree, bins, p.max_depth)
 
-        eval_bins = eval_labels = eval_margin = None
-        if eval_set is not None:
-            eval_bins = torch.from_numpy(bin_batch(eval_set[0], dm.cuts)).to(dev)
-            eval_labels = np.asarray(eval_set[1], dtype=np.float32)
-            eval_margin = torch.full(
-                (eval_labels.shape[0],), self.base_margin_, dtype=torch.float32, device=dev
-            )
-            for tree in self.trees:
-                eval_margin = eval_margin + p.learning_rate * predict_tree_bins(
-                    tree, eval_bins, p.max_depth
-                )
-        metric_name = self._metric_name(eval_metric)
-
-        t0 = time.perf_counter()
-        best_metric, best_iter = None, -1
-        for it in range(p.n_estimators):
+        def boost_round() -> TreeArrays:
+            nonlocal margin
             g, h = sample(*self.objective.grad_hess(margin, labels_t), p.sampling)
             res = grow_tree(
                 bins, g, h, n_bins, bin_valid, tp,
                 cut_values=dm.cuts.values, cut_ptrs=dm.cuts.ptrs,
                 hist_cache=self.hist_cache,
             )
-            self.trees.append(res.tree)
             # eager multiply then add, as the reference (no fused FMA)
             margin = margin + p.learning_rate * res.tree.leaf_value[res.positions.to(torch.int64)]
-            if eval_bins is None:
-                continue
-            pred = predict_tree_bins(res.tree, eval_bins, tp.max_depth)
-            eval_margin = eval_margin + p.learning_rate * pred
-            val = self._eval(metric_name, eval_labels, eval_margin)
-            self.eval_history.append(EvalRecord(it, metric_name, val, time.perf_counter() - t0))
-            if verbose:
-                print(f"[{it}] {metric_name}={val:.6f}")
-            better = (
-                best_metric is None
-                or (metric_name in ("auc", "accuracy") and val > best_metric)
-                or (metric_name not in ("auc", "accuracy") and val < best_metric)
-            )
-            if better:
-                best_metric, best_iter = val, it
-            elif p.early_stopping_rounds and it - best_iter >= p.early_stopping_rounds:
-                break
-        self.best_iteration_ = best_iter if best_iter >= 0 else len(self.trees) - 1
+            return res.tree
+
+        self._boost(boost_round, eval_set, dm.cuts, eval_metric, verbose)
         return self
+
+    # ----------------------------------------------- Alg. 6 (streaming path)
+    def _stream(self):
+        """One `PageStream` pass over the last external fit's page set."""
+        return self.pages.stream(
+            device=self.device,
+            prefetch_depth=self.policy.prefetch_depth,
+            staging_depth=self.policy.staging_depth,
+            cache=self._device_cache,
+            retry=self.policy.retry,
+        )
+
+    def _fit_external(self, dm, eval_set, eval_metric, verbose) -> "GradientBooster":
+        from repro_torch.pipeline import DevicePageCache
+
+        p, dev = self.params, self.device
+        tp = p.tree_params()
+        labels = dm.require_labels()
+        pages = dm.page_set()
+        self.pages = pages
+        self.stats = pages.stats
+        self.hist_cache = self._make_hist_store()
+        n_bins = dm.n_bins
+        bin_valid = bin_valid_from_cuts(dm.cuts, n_bins, dev)
+        labels_t = torch.from_numpy(labels).to(dev)
+        if self.margins_ is None:
+            # a refit of the same data boosts on from the held margins, as
+            # the reference's external engine does
+            self.base_margin_ = (
+                p.base_score if p.base_score is not None else self.objective.base_margin(labels)
+            )
+            self.margins_ = torch.full(
+                (pages.n_rows,), self.base_margin_, dtype=torch.float32, device=dev
+            )
+        cache_pages = self.policy.device_cache_pages or 0
+        self._device_cache = DevicePageCache(cache_pages) if cache_pages > 0 else None
+
+        def boost_round() -> TreeArrays:
+            g, h = sample(*self.objective.grad_hess(self.margins_, labels_t), p.sampling)
+            res = self._build_tree_streaming(g, h, n_bins, bin_valid, tp, dm.cuts)
+            # eager multiply then add, as the reference (no fused FMA)
+            leaf = res.tree.leaf_value[res.positions.to(torch.int64)]
+            self.margins_ = self.margins_ + p.learning_rate * leaf
+            return res.tree
+
+        self._boost(boost_round, eval_set, dm.cuts, eval_metric, verbose)
+        return self
+
+    def _build_tree_streaming(self, g, h, n_bins, bin_valid, tp, cuts) -> TreeBuildResult:
+        from repro_torch.core.outofcore import build_tree_paged
+
+        extents = self.pages.page_extents
+        tree, positions = build_tree_paged(
+            self._stream, extents, g, h, n_bins, bin_valid, tp,
+            cuts.values, cuts.ptrs, hist_cache=self.hist_cache,
+        )
+        # final positions point at leaves: the margin update needs no pass
+        pos = torch.cat([positions[i] for i in range(len(extents))])
+        return TreeBuildResult(tree=tree, positions=pos)
 
     def _metric_name(self, eval_metric: str) -> str:
         if eval_metric != "auto":
@@ -306,14 +407,16 @@ class GradientBooster:
     def predict_margin(
         self, X: np.ndarray, iteration_range: tuple[int, int] | None = None
     ) -> np.ndarray:
-        """Margins of raw feature rows through one fused forest launch; equal
-        bit for bit to `PackedForest.predict_margin_per_tree`."""
+        """Margins of raw feature rows, binned on the device, through one
+        fused forest launch; equal bit for bit to
+        `PackedForest.predict_margin_per_tree`."""
         if self.cuts is None:
             raise ValueError("booster is not fitted")
         if hasattr(X, "single_page_bins"):
             raise NotImplementedError(
-                "predicting a DMatrix streams its pages; that comes with the "
-                "out-of-core slice — pass the raw feature array"
+                "predicting a DMatrix streams its pages through the serving tier, "
+                "which is not ported yet (ROADMAP queue 1 item 7); pass the raw "
+                "feature array"
             )
         forest = self.packed_forest(iteration_range)
         return forest.predict_margin_bins(forest.quantize(X)).cpu().numpy()

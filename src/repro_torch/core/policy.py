@@ -1,12 +1,10 @@
 """ExecutionPolicy: memory-budget-driven training-mode selection (paper §3.4).
 
 Counterpart of `repro.core.policy`. The decision procedure is the
-reference's, unchanged; the port trains the ``in_core`` decision in this
-slice, and `GradientBooster.fit` raises for ``out_of_core`` and ``sampled``
-(queued with the out-of-core slice). The streaming knobs (prefetch and
-staging depths, device page cache, page skipping, checkpoint cadence), the
-page codec, the histogram transport and the I/O retry policy are not fields
-here yet: each comes with the slice that reads it.
+reference's, unchanged; the port trains the ``in_core`` and ``out_of_core``
+decisions, and `GradientBooster.fit` raises for ``sampled`` (Alg. 7, queued).
+The policy also carries the streaming knobs (prefetch and staging depths,
+device page cache, checkpoint cadence) and the I/O retry policy.
 
 The paper's decision procedure, as a config object: given a `DMatrix` and the
 booster hyperparameters, consult the Table-1 byte model (`DeviceMemoryModel`)
@@ -38,6 +36,7 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.core.memory import DeviceMemoryModel
+from repro_torch.fault.retry import RetryPolicy
 
 MODES = ("auto", "in_core", "out_of_core", "sampled")
 
@@ -87,6 +86,19 @@ class ExecutionPolicy:
     # per path stay device-resident for transfer-free multi-level derivation.
     # Depthwise always retains exactly the parent level.
     hist_retained_levels: int = 1
+    # streaming-engine knobs (see repro_torch.pipeline.PageStream)
+    prefetch_depth: int = 2
+    staging_depth: int = 2
+    # device page cache of the streaming engine: None = auto (no cache on
+    # the streaming path, whose LRU scans would evict every page right
+    # before its reuse); a count caches that many pages; 0 disables
+    device_cache_pages: int | None = None
+    # checkpoint cadence for external-mode training (None = no checkpoints)
+    checkpoint_every: int | None = None
+    checkpoint_dir: str | None = None
+    # transient-I/O retry/backoff of the page prefetcher; attempts/aborts
+    # are accounted in TransferStats.io_retries / io_giveups
+    retry: RetryPolicy = RetryPolicy()
 
     def __post_init__(self) -> None:
         if self.mode not in MODES:

@@ -3,7 +3,7 @@
 Counterpart of `repro.core.sampling`. `SamplingConfig` keeps the reference's
 fields and validation, so a checkpoint that names any method loads. Only
 ``method="none"`` trains in this slice: uniform (SGB), GOSS and MVS sampling
-are queued with the out-of-core slice (Alg. 7), and `sample` raises for them.
+are queued with the sampled path (Alg. 7), and `sample` raises for them.
 """
 from __future__ import annotations
 
@@ -36,5 +36,5 @@ def sample(
         return g, h
     raise NotImplementedError(
         f"sampling method {cfg.method!r} is not ported yet: gradient-based "
-        "sampling (SGB, GOSS, MVS) comes with the out-of-core slice (Alg. 7)"
+        "sampling (SGB, GOSS, MVS) comes with the sampled path (Alg. 7)"
     )

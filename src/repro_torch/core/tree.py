@@ -11,9 +11,9 @@ level d:
 
 `grow_tree_generic` drives the levels through two callbacks, histogram
 accumulation (`HistFn`) and row repartition (`PartitionFn`), so the
-out-of-core builder of a later slice reuses it with page loops. Rows carry a
-global node-id position that freezes at leaves, so after the last level
-``leaf_value[pos]`` is every training row's prediction.
+out-of-core builder (`core.outofcore.build_tree_paged`) reuses it with page
+loops. Rows carry a global node-id position that freezes at leaves, so after
+the last level ``leaf_value[pos]`` is every training row's prediction.
 
 Best-first growth (``grow_policy="lossguide"``) is queued: `TreeParams`
 raises for it.

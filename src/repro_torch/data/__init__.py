@@ -1,1 +1,2 @@
-"""Data surface of the port: DMatrix, transfer ledger, synthetic data."""
+"""Data surface of the port: DMatrix sources, page store and prefetcher,
+transfer ledger, synthetic data."""

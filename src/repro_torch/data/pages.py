@@ -1,15 +1,45 @@
-"""Transfer ledger and durable-directory helper for the port.
+"""External page store, threaded prefetcher and transfer ledger.
 
-Counterpart of the part of `repro.data.pages` that the in-core slice uses:
-`TransferStats`, the byte/seconds ledger every staging path books into, and
-`fsync_dir`, which checkpoints use to make a rename durable. `PageStore` and
-`Prefetcher` (the on-disk page cache and its threaded reader) arrive with the
-out-of-core slice.
+Counterpart of `repro.data.pages` (paper §2.3 / §3.2 substrate).
+`PageStore` persists ELLPACK pages (and their metadata) to disk in the
+reference's format, so a page cache written by either package opens in the
+other: each blob is ``RAW0`` plus an ``np.savez`` archive, written to a tmp
+file, fsynced and renamed into place, and ``manifest.json`` (replaced the
+same way, after the blob) records each page's size and CRC32. A crash
+mid-write leaves the torn page out of the manifest; `read_page` checks the
+CRC and raises `PageCorruptError` naming the page instead of decoding
+garbage. Only the raw page codec is ported: reading a page whose manifest entry
+names another codec (a cache the reference wrote compressed) or a zstd blob
+raises `NotImplementedError` (ROADMAP queue 1 item 8).
+
+`Prefetcher` is the §2.3 multi-threaded pre-fetcher: it loads pages k+1 ..
+k+depth in a background thread while page k is consumed, retrying transient
+read faults under a `repro_torch.fault.RetryPolicy`. Store and prefetcher
+fire `repro_torch.fault.inject` sites so chaos tests can plant
+deterministic I/O failures. `TransferStats` counts the bytes that cross each
+boundary and the streaming overlap ledger.
 """
 from __future__ import annotations
 
 import dataclasses
+import io
+import json
 import os
+import queue
+import threading
+import time
+import zlib
+from typing import Callable, Iterable, Iterator
+
+import numpy as np
+
+from repro_torch.fault import inject as fault_inject
+from repro_torch.fault.retry import RetryPolicy
+
+NOT_PORTED_CODEC = (
+    "page codec {!r} is not ported: only raw pages are; compressed pages come "
+    "with ROADMAP queue 1 item 8"
+)
 
 
 @dataclasses.dataclass
@@ -20,14 +50,17 @@ class TransferStats:
     device_to_host_bytes: int = 0
     page_loads: int = 0
     load_seconds: float = 0.0
-    # --- streaming-overlap accounting (filled by the out-of-core PageStream) ---
-    # fetch/stage/compute are attributed where the work happens (fetch in the
-    # prefetcher thread, stage + compute in the consumer thread), so their sum
+    # --- streaming-overlap accounting (filled by repro_torch.pipeline.PageStream) ---
+    # fetch/stage/compute are attributed where the work happens, so their sum
     # is the *serial* cost of a pass; wall is what actually elapsed. Overlap
     # hides serial work, so wall < serial when the pipeline is doing its job.
+    # On a CUDA device stage and compute are device times read from CUDA
+    # events (the copy on the side stream; the page's kernels on the compute
+    # stream), and each pass ends with a synchronise, so wall covers the
+    # device work it launched. On the CPU they are host clock times.
     stream_fetch_seconds: float = 0.0  # source fetch (disk/host) time
-    stream_stage_seconds: float = 0.0  # host->device put time
-    stream_compute_seconds: float = 0.0  # consumer time between pages
+    stream_stage_seconds: float = 0.0  # pinned-buffer fill + host->device copy
+    stream_compute_seconds: float = 0.0  # the consumer's work on each page
     stream_wall_seconds: float = 0.0  # end-to-end elapsed across passes
     cache_hits: int = 0  # device-page cache hits (transfers skipped)
     cache_hit_bytes: int = 0  # host->device bytes those hits saved
@@ -54,6 +87,12 @@ class TransferStats:
     # wire_bytes. Disk-side savings show up in disk_read/write_bytes instead.
     logical_bytes: int = 0
     wire_bytes: int = 0
+    # --- retry ledger (filled by repro_torch.fault.RetryPolicy.call) ---
+    # io_retries counts re-attempts that a transient fault cost (page
+    # reads); io_giveups counts operations that exhausted their attempt
+    # budget and surfaced the error
+    io_retries: int = 0
+    io_giveups: int = 0
 
     @property
     def cache_hit_rate(self) -> float:
@@ -88,6 +127,71 @@ class TransferStats:
             setattr(self, f.name, f.default)
 
 
+GLOBAL_STATS = TransferStats()
+
+
+def _encode(arrays: dict[str, np.ndarray]) -> bytes:
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return b"RAW0" + buf.getvalue()
+
+
+def _decode(blob: bytes) -> dict[str, np.ndarray]:
+    tag, body = blob[:4], blob[4:]
+    if tag != b"RAW0":
+        raise NotImplementedError(NOT_PORTED_CODEC.format(tag.decode(errors="replace")))
+    data = np.load(io.BytesIO(body))
+    return {k: data[k] for k in data.files}
+
+
+class PageCorruptError(OSError):
+    """A page blob failed its manifest CRC32 check (torn write / bit rot).
+
+    Raised by `PageStore.read_page` instead of decoding garbage; names the
+    page index and file so the operator knows exactly what to rebuild.
+    """
+
+    def __init__(self, idx: int, path: str, expected: int, actual: int):
+        self.idx = idx
+        self.path = path
+        super().__init__(
+            f"page {idx} is corrupt: CRC32 mismatch on {path} "
+            f"(manifest {expected:#010x}, on disk {actual:#010x}). The page "
+            f"cache is damaged — rebuild it from the raw source (IterDMatrix)."
+        )
+
+
+class PageDecodeError(PageCorruptError):
+    """A page blob passed CRC but failed to decode (truncated or garbled
+    payload). Deterministic damage like a CRC mismatch — never retried —
+    naming the codec and page index."""
+
+    def __init__(self, idx: int, path: str, codec: str, cause: Exception):
+        self.idx = idx
+        self.path = path
+        self.codec = codec
+        OSError.__init__(
+            self,
+            f"page {idx} failed {codec!r} decode on {path}: {cause!r}. The "
+            f"payload is damaged — rebuild the page cache from the raw source "
+            f"(IterDMatrix).",
+        )
+
+
+def _atomic_write(path: str, data: bytes) -> None:
+    """Write bytes durably: tmp file in the same dir, fsync, `os.replace`.
+
+    A crash at any point leaves either the old file or the new file — never a
+    half-written one trusted by a later reopen.
+    """
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as fh:
+        fh.write(data)
+        fh.flush()
+        os.fsync(fh.fileno())
+    os.replace(tmp, path)
+
+
 def fsync_dir(path: str) -> None:
     """Best-effort directory fsync so a rename itself survives power loss."""
     try:
@@ -100,3 +204,130 @@ def fsync_dir(path: str) -> None:
         pass
     finally:
         os.close(fd)
+
+
+class PageStore:
+    """Directory of numbered pages; thread-safe reads, durable writes.
+
+    Every blob and the manifest land via `_atomic_write`; each manifest entry
+    records the blob's CRC32, verified on `read_page`. A crash between blob
+    and manifest writes leaves the new page invisible (the manifest still
+    describes a fully consistent store).
+    """
+
+    def __init__(self, root: str, stats: TransferStats | None = None):
+        self.root = root
+        self.stats = stats or GLOBAL_STATS
+        os.makedirs(root, exist_ok=True)
+        self._meta: dict = {"pages": []}
+        self._meta_path = os.path.join(root, "manifest.json")
+        if os.path.exists(self._meta_path):
+            with open(self._meta_path) as fh:
+                self._meta = json.load(fh)
+
+    @property
+    def n_pages(self) -> int:
+        return len(self._meta["pages"])
+
+    def _path(self, idx: int) -> str:
+        return os.path.join(self.root, f"page_{idx:06d}.bin")
+
+    def write_page(self, arrays: dict[str, np.ndarray], meta: dict | None = None) -> int:
+        idx = self.n_pages
+        fault_inject.fire("page_store.write_page", index=idx)
+        blob = _encode(arrays)
+        _atomic_write(self._path(idx), blob)
+        self.stats.disk_write_bytes += len(blob)
+        entry = {"idx": idx, "bytes": len(blob), "crc32": zlib.crc32(blob), "codec": "raw"}
+        entry.update(meta or {})
+        self._meta["pages"].append(entry)
+        # manifest last: a crash before this point leaves the fresh blob
+        # unreferenced, never a referenced-but-torn page
+        _atomic_write(self._meta_path, json.dumps(self._meta).encode())
+        fsync_dir(self.root)
+        return idx
+
+    def read_page(self, idx: int) -> dict[str, np.ndarray]:
+        fault_inject.fire("page_store.read_page", index=idx)
+        t0 = time.perf_counter()
+        with open(self._path(idx), "rb") as fh:
+            blob = fh.read()
+        entry = self._meta["pages"][idx] if idx < len(self._meta["pages"]) else {}
+        want = entry.get("crc32")  # pre-durability manifests have no CRC
+        if want is not None:
+            got = zlib.crc32(blob)
+            if got != want:
+                raise PageCorruptError(idx, self._path(idx), want, got)
+        # legacy (pre-codec) manifests have no "codec" field and decode as raw
+        codec_name = entry.get("codec", "raw")
+        if codec_name != "raw" or entry.get("codec_meta"):
+            raise NotImplementedError(NOT_PORTED_CODEC.format(codec_name))
+        try:
+            fault_inject.fire("page_store.decode", index=idx, codec=codec_name)
+            out = _decode(blob)
+        except NotImplementedError:
+            raise
+        except Exception as err:
+            raise PageDecodeError(idx, self._path(idx), codec_name, err) from err
+        self.stats.disk_read_bytes += len(blob)
+        self.stats.page_loads += 1
+        self.stats.load_seconds += time.perf_counter() - t0
+        return out
+
+    def page_meta(self, idx: int) -> dict:
+        return self._meta["pages"][idx]
+
+
+class Prefetcher:
+    """Background-thread page loader (the §2.3 multi-threaded pre-fetcher).
+
+    Wraps any `load(idx)` callable; yields pages in order while keeping up to
+    `depth` loads in flight ahead of the consumer. Failed loads are retried
+    with exponential backoff + jitter under a `RetryPolicy` (``retry``,
+    default ``RetryPolicy()``: 3 attempts) before surfacing. Re-attempts land in ``stats.io_retries``, exhausted
+    budgets in ``stats.io_giveups``. `PageCorruptError` is never retried: a
+    failed checksum is deterministic damage, not a transient fault.
+    """
+
+    def __init__(
+        self,
+        load: Callable[[int], dict],
+        indices: Iterable[int],
+        depth: int = 2,
+        retry: RetryPolicy | None = None,
+        stats: TransferStats | None = None,
+    ):
+        self._load = load
+        self._indices = list(indices)
+        self._queue: "queue.Queue[tuple[int, object]]" = queue.Queue(maxsize=depth)
+        self._retry = retry if retry is not None else RetryPolicy()
+        self._stats = stats
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self) -> None:
+        for idx in self._indices:
+            try:
+                page = self._retry.call(
+                    lambda idx=idx: self._load(idx),
+                    retryable=(Exception,),
+                    nonretryable=(PageCorruptError, NotImplementedError),
+                    stats=self._stats,
+                    describe=f"page {idx} load",
+                )
+            except Exception as e:
+                self._queue.put((idx, e))
+                continue
+            self._queue.put((idx, page))
+        self._queue.put((-1, None))
+
+    def __iter__(self) -> Iterator[tuple[int, dict]]:
+        while True:
+            idx, item = self._queue.get()
+            if idx == -1:
+                return
+            if isinstance(item, (PageCorruptError, NotImplementedError)):
+                raise item  # already the actionable error; don't bury it
+            if isinstance(item, Exception):
+                raise RuntimeError(f"page {idx} failed to load after retries") from item
+            yield idx, item

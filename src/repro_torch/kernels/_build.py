@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("histogram", "partition", "forest")
+SOURCES = ("histogram", "partition", "forest", "ellpack_bin")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -37,7 +37,7 @@ NVCC_FLAGS = (
     "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 # argtypes of each library's C entry point (see the extern "C" functions)
 SIGNATURES = {
     "histogram": ("hist_nodes_launch", [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P,
@@ -45,6 +45,7 @@ SIGNATURES = {
     "partition": ("partition_launch", [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P]),
     "forest": ("forest_launch", [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                                  _P]),
+    "ellpack_bin": ("ellpack_bin_launch", [_P, _I, _L, _I, _P, _I, _P, _P, _P]),
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,10 @@
 """Dispatch by tensor device: CUDA kernel for CUDA tensors, plain version
 for CPU tensors.
 
+Kernel 4 of the reference (`build_histogram`, the level-window and
+``node_map`` path) is not ported yet: `build_histogram_paged` takes the
+fused ``build_nodes`` path only and raises for the other.
+
 Counterpart of `repro.kernels.ops`. There is no ``impl`` switch and no
 environment override: a CUDA tensor always launches the hand-written kernel
 (which raises on anything it cannot take), and only a CPU tensor runs the
@@ -10,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ellpack_bin as _ellpack_bin
 from repro_torch.kernels import forest as _forest
 from repro_torch.kernels import histogram as _histogram
 from repro_torch.kernels import partition as _partition
@@ -24,6 +29,55 @@ def build_histogram_nodes(bins, g, h, positions, build_nodes, n_bins: int):
     if bins.is_cuda:
         return _histogram.build_histogram_nodes(bins, g, h, positions, build_nodes, n_bins)
     return _ref.build_histogram_nodes(bins, g, h, positions, build_nodes, n_bins)
+
+
+def build_histogram_paged(
+    stream,
+    g,
+    h,
+    positions,
+    offset: int,
+    count: int,
+    n_bins: int,
+    node_map=None,
+    build_nodes=None,
+):
+    """Page-batched histogram: the sum of per-page node-set histograms over
+    one stream pass.
+
+    ``stream`` yields `StreamedPage`s whose host view has ``row_offset`` /
+    ``n_rows`` and whose device tensor is the staged uint8 page;
+    ``positions[page.index]`` holds that page's global tree positions. Each
+    page's raw positions go straight to `build_histogram_nodes` (one launch
+    per page); pages are summed in f32 in stream order. ``offset`` is
+    unused on this path and ``count`` must equal the build-set size; the
+    ``node_map`` path needs kernel 4 and raises.
+    """
+    if node_map is not None or build_nodes is None:
+        raise NotImplementedError(
+            "the level-window/node_map histogram (kernel 4, "
+            "kernels/histogram.py::build_histogram) is not ported yet; pass build_nodes"
+        )
+    if count != build_nodes.shape[0]:
+        raise ValueError(f"count={count} != {build_nodes.shape[0]} build nodes")
+    hist = None
+    for page in stream:
+        ro, nr = page.host.row_offset, page.host.n_rows
+        hp = build_histogram_nodes(
+            page.device, g[ro : ro + nr], h[ro : ro + nr], positions[page.index],
+            build_nodes, n_bins,
+        )
+        # summed in place into the first page's histogram: one level
+        # histogram fewer on the device, the same f32 additions
+        hist = hp if hist is None else hist.add_(hp)
+    return hist
+
+
+def bin_values(x, padded_edges, n_bins_per_feature):
+    """uint8 ELLPACK bins of raw f32 or f64 features (NaN -> 255)."""
+    if x.is_cuda:
+        return _ellpack_bin.bin_values(x, padded_edges, n_bins_per_feature)
+    return _ref.bin_values(x, padded_edges, n_bins_per_feature)
 
 
 def partition_rows(bins, positions, feature, split_bin, default_left, is_leaf):

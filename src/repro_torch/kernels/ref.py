@@ -1,8 +1,8 @@
-"""Plain PyTorch versions of the three CUDA kernels (and single-tree predict).
+"""Plain PyTorch versions of the four CUDA kernels (and single-tree predict).
 
 These are the semantics ground truth of `repro_torch.kernels`: each CUDA
 kernel must agree with the function here on the same inputs (partition and
-forest bit for bit, histograms to f32 summation order). They are the path a
+forest and binning bit for bit, histograms to f32 summation order). They are the path a
 CPU tensor takes through `kernels.ops`, and the yardstick `chip_smoke.py`
 holds each kernel against on the card. Counterparts of `repro.kernels.ref`.
 
@@ -22,6 +22,9 @@ MISSING_BIN = 255
 # rows per chunk of the scatter in `build_histogram_nodes`: bounds the
 # (rows, m) int64 index temporaries at full width (1M x 500 would be 4 GB)
 _HIST_ROW_CHUNK = 1 << 16
+# compare cells per chunk of `bin_values`: bounds its (rows, m, B) boolean
+# temporary (100k x 500 x 255 whole would be 12.75 GB)
+_BIN_CHUNK_CELLS = 1 << 24
 
 
 def row_slots(positions: torch.Tensor, build_nodes: torch.Tensor) -> torch.Tensor:
@@ -59,6 +62,29 @@ def build_histogram_nodes(
         out.index_add_(0, cell, g[rows].to(torch.float32))
         out.index_add_(0, cell + 1, h[rows].to(torch.float32))
     return out.reshape(n_slots, m, n_bins, 2)
+
+
+def bin_values(
+    x: torch.Tensor,  # (n_rows, m) f32 or f64 raw features
+    padded_edges: torch.Tensor,  # (m, B) f32 right edges, +inf padded
+    n_bins_per_feature: torch.Tensor,  # (m,) int32
+) -> torch.Tensor:
+    """Quantise raw features to uint8 local bins (Alg. 4 inner loop):
+    ``clip(#{k : x > edges[f, k]}, 0, n_bins_f - 1)``, NaN -> MISSING_BIN.
+
+    Compares in x's own type (the f32 edges widen exactly to f64), in row
+    chunks so no (n_rows, m, B) temporary is ever whole."""
+    n_rows, m = x.shape
+    edges = padded_edges.to(x.dtype)
+    last = (n_bins_per_feature.to(torch.int64) - 1).clamp(min=0)
+    out = torch.empty((n_rows, m), dtype=torch.uint8, device=x.device)
+    step = max(1, _BIN_CHUNK_CELLS // max(m * padded_edges.shape[1], 1))
+    for lo in range(0, n_rows, step):
+        xc = x[lo : lo + step]
+        cnt = (xc[:, :, None] > edges[None, :, :]).sum(dim=-1)
+        b = torch.minimum(cnt, last[None, :])
+        out[lo : lo + step] = torch.where(torch.isnan(xc), MISSING_BIN, b).to(torch.uint8)
+    return out
 
 
 def partition_rows(

@@ -93,12 +93,13 @@ class PackedForest:
         )
 
     def quantize(self, X: np.ndarray) -> Tensor:
-        """Raw feature rows -> uint8 bins on the forest's device."""
+        """Raw feature rows -> uint8 bins, binned on the forest's device (the
+        CUDA binning kernel there), in chunks of one page's rows."""
         if self.cuts is None:
             raise ValueError("PackedForest has no cuts; predict from bins instead")
-        from repro_torch.core.ellpack import bin_batch
+        from repro_torch.core.ellpack import Binner
 
-        return torch.from_numpy(bin_batch(np.asarray(X), self.cuts)).to(self.device)
+        return Binner(self.cuts, self.device).to_device(X)
 
     def predict_margin(self, X: np.ndarray) -> np.ndarray:
         """Raw-feature front door: quantise with the forest's cuts, then fuse."""

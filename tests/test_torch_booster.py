@@ -19,6 +19,7 @@ from oracle import assert_forests_equal
 
 from conftest import MAX_BIN, MAX_DEPTH
 from repro.core.booster import GradientBooster as JBooster
+from repro.data.dmatrix import IterDMatrix as JIterDMatrix
 from repro_torch.core.booster import (
     BoosterParams,
     CheckpointCorruptError,
@@ -26,7 +27,7 @@ from repro_torch.core.booster import (
 )
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.core.sampling import SamplingConfig
-from repro_torch.data.dmatrix import ArrayDMatrix
+from repro_torch.data.dmatrix import ArrayDMatrix, PagedDMatrix
 from repro_torch.serve import PackedForest
 
 PARAMS = dict(n_estimators=4, max_depth=MAX_DEPTH, max_bin=MAX_BIN, learning_rate=0.3)
@@ -175,31 +176,41 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, fitted, tmp_pat
 @pytest.mark.parametrize("case", [
     "lossguide", "sampling", "out_of_core", "hist_budget", "batch_source", "predict_dmatrix",
 ])
-def test_unported_paths_raise_not_implemented(case, data):
+def test_unported_paths_raise_not_implemented(case, data, tmp_path):
+    """Out-of-core streaming trains now; its unported corners still raise:
+    a page cache the reference wrote compressed ("out_of_core") and the
+    sampled decision on a batch source ("batch_source")."""
     X, y, _, _ = data
     kw = dict(PARAMS, n_estimators=1)
+    if case == "out_of_core":
+        cache = str(tmp_path / "bitpack")
+        JIterDMatrix([(X, y)], max_bin=MAX_BIN, cache_dir=cache, page_codec="bitpack")
+        b = GradientBooster(device="cpu", policy=ExecutionPolicy(mode="out_of_core"), **kw)
+        with pytest.raises(NotImplementedError, match="item 8"):
+            b.fit(PagedDMatrix(cache))
+        return
     if case == "predict_dmatrix":
         b = GradientBooster(device="cpu", **kw).fit(X, y)
         with pytest.raises(NotImplementedError):
-            b.predict_margin(ArrayDMatrix(X, y, max_bin=MAX_BIN))
+            b.predict_margin(ArrayDMatrix(X, y, max_bin=MAX_BIN, device="cpu"))
         return
     policy = {
-        "out_of_core": ExecutionPolicy(mode="out_of_core"),
-        "hist_budget": ExecutionPolicy(hist_budget_bytes=1 << 20),
-    }.get(case)
+        "hist_budget": lambda: ExecutionPolicy(hist_budget_bytes=1 << 20),
+        "batch_source": lambda: ExecutionPolicy(mode="sampled"),
+    }.get(case, lambda: None)
     kw.update({
         "lossguide": dict(grow_policy="lossguide", max_leaves=4),
         "sampling": dict(sampling=SamplingConfig(method="mvs", f=0.5)),
     }.get(case, {}))
     with pytest.raises(NotImplementedError):
-        b = GradientBooster(device="cpu", policy=policy, **kw)
+        b = GradientBooster(device="cpu", policy=policy(), **kw)
         b.fit((lambda: iter([(X, y)])) if case == "batch_source" else X,
               None if case == "batch_source" else y)
 
 
 def test_fit_accepts_dmatrix_and_pinned_cuts(data):
     X, y, Xe, _ = data
-    dm = ArrayDMatrix(X, y, max_bin=MAX_BIN)
+    dm = ArrayDMatrix(X, y, max_bin=MAX_BIN, device="cpu")
     a = GradientBooster(device="cpu", **PARAMS).fit(dm)
     b = GradientBooster(device="cpu", **PARAMS).fit(X, y, cuts=dm.cuts)
     np.testing.assert_array_equal(a.predict_margin(Xe), b.predict_margin(Xe))

@@ -6,14 +6,19 @@ on a GPU machine without JAX:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Partition and forest must equal the plain versions bit for bit; the
-histogram is allclose(rtol=1e-5, atol=1e-5) (the plain version sums f32 in
-another order) and equal to itself across runs (fixed-point accumulation).
+Partition, forest and binning must equal the plain versions bit for bit
+(binning also equals the host `bin_batch`, for float32 and float64 input);
+the histogram is allclose(rtol=1e-5, atol=1e-5) (the plain version sums f32
+in another order) and equal to itself across runs (fixed-point
+accumulation).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.ellpack import Binner, bin_batch
+from repro_torch.core.quantile import sketch_dense
+from repro_torch.kernels import ellpack_bin as k_bin
 from repro_torch.kernels import forest as k_forest
 from repro_torch.kernels import histogram as k_hist
 from repro_torch.kernels import partition as k_part
@@ -117,3 +122,41 @@ def test_wrappers_reject_bad_arguments(dev):
             *(torch.zeros(3, dtype=t, device=dev) for t in (torch.int32, torch.int32)),
             *(torch.zeros(3, dtype=torch.bool, device=dev) for _ in range(2)),
         )
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n,m,max_bin", [(5000, 37, 256), (1, 1, 2), (3001, 70, 16)])
+def test_bin_kernel_matches_plain_and_host(dev, dtype, n, m, max_bin):
+    rng = np.random.default_rng(n + m)
+    X = rng.normal(size=(n, m)).astype(dtype)
+    X[rng.random((n, m)) < 0.05] = np.nan
+    cuts = sketch_dense(X, max_bin)
+    # values on the edges, just around them (f64: between adjacent f32
+    # numbers), and the specials
+    edges = cuts.values.astype(np.float64)
+    pick = rng.integers(0, len(edges), n * m // 4)
+    nudge = rng.choice([-1e-12, 0.0, 1e-12], pick.size)
+    flat = X.reshape(-1)
+    flat[rng.choice(n * m, pick.size, replace=False)] = (edges[pick] * (1 + nudge)).astype(dtype)
+    flat[:: max(1, flat.size // 7)] = np.array([np.inf, -np.inf, -0.0, 0.0], dtype)[
+        np.arange(len(flat[:: max(1, flat.size // 7)])) % 4]
+    binner = Binner(cuts, dev)
+    x = torch.from_numpy(X).to(dev)
+    got = k_bin.bin_values(x, binner.edges, binner.n_bins)
+    want = ref.bin_values(x.cpu(), binner.edges.cpu(), binner.n_bins.cpu())
+    assert got.dtype == torch.uint8
+    assert torch.equal(got.cpu(), want)
+    np.testing.assert_array_equal(got.cpu().numpy(), bin_batch(X, cuts))
+    np.testing.assert_array_equal(binner.to_host(X), bin_batch(X, cuts))
+
+
+def test_bin_kernel_rejects_bad_arguments(dev):
+    x = torch.zeros((4, 2), device=dev)
+    edges = torch.zeros((2, 3), device=dev)
+    nb = torch.ones(2, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="dtype"):
+        k_bin.bin_values(x.half(), edges, nb)
+    with pytest.raises(ValueError, match="shape"):
+        k_bin.bin_values(x, edges[:1], nb)
+    with pytest.raises(ValueError, match="CUDA"):
+        k_bin.bin_values(x.cpu(), edges, nb)

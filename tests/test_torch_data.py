@@ -45,12 +45,13 @@ def test_threaded_sketch_equals_reference():
 
 def test_array_dmatrix_matches_reference():
     X, y = make_classification(400, 5, missing_rate=0.05, seed=1)
-    dm, jdm = ArrayDMatrix(X, y, max_bin=64), JArrayDMatrix(X, y, max_bin=64)
+    dm = ArrayDMatrix(X, y, max_bin=64, device="cpu")
+    jdm = JArrayDMatrix(X, y, max_bin=64)
     assert (dm.n_rows, dm.num_features, dm.n_bins) == (jdm.n_rows, jdm.num_features, jdm.n_bins)
     assert dm.estimated_device_bytes() == jdm.estimated_device_bytes()
     np.testing.assert_array_equal(dm.single_page_bins(), jdm.single_page_bins())
     with pytest.raises(ValueError, match="no labels"):
-        ArrayDMatrix(X).require_labels()
+        ArrayDMatrix(X, device="cpu").require_labels()
 
 
 @pytest.mark.parametrize("kw", [{}, {"max_depth": 12, "hist_budget_bytes": 1 << 20},
@@ -71,7 +72,8 @@ def test_policy_decides_like_reference():
     from repro_torch.core.booster import BoosterParams
 
     X, y = make_classification(2000, 20, seed=2)
-    dm, jdm = ArrayDMatrix(X, y, max_bin=32), JArrayDMatrix(X, y, max_bin=32)
+    dm = ArrayDMatrix(X, y, max_bin=32, device="cpu")
+    jdm = JArrayDMatrix(X, y, max_bin=32)
     def outcome(policy, d, params):
         try:
             dec = policy.decide(d, params)

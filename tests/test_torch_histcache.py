@@ -84,7 +84,8 @@ def test_budgeted_store_is_queued():
 def test_subtraction_tree_matches_full_build(small_classification):
     X, _ = small_classification
     rng = np.random.default_rng(3)
-    cuts, bins = create_ellpack_inmemory(X, max_bin=32)
+    ell = create_ellpack_inmemory(X, max_bin=32, device=CPU)
+    cuts, bins = ell.cuts, ell.single_page().bins
     g = torch.from_numpy(rng.normal(size=X.shape[0]).astype(np.float32))
     h = torch.from_numpy((rng.random(X.shape[0]) + 0.1).astype(np.float32))
     bv = bin_valid_from_cuts(cuts, 32, CPU)
