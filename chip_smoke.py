@@ -42,7 +42,24 @@ Phases, each of which fails the run on error:
      against the plain histogram of the concatenated pages;
   7. fits twice more by streaming (3 trees, a 200k-row subset, the page
      cache reopened through ``PagedDMatrix``, staging depth 2) and requires
-     identical trees.
+     identical trees;
+  8. drives the elastic multi-worker path at the same width:
+     ``prepare_shards`` of 400k fresh rows into 2 shards of 3 x 32 MiB pages
+     (binned on the card), then ``ElasticTrainer(device="cuda")`` with 2
+     subprocess workers on the same card, 4 trees: run A uninterrupted (the
+     level-window histogram kernel launched once per page and level in the
+     workers, counted from their counters at shutdown; the node-set kernel
+     never), run B with worker w1 killed at its third ``begin_tree`` (one
+     recovery, shard reassignment, resume; every tree array equal to run
+     A's), and eval AUC within 1e-3 of the single-process streaming fit on
+     the same rows and cuts. Then, on one staged page at level 7, the
+     level-window kernel against its plain version and bit for bit against
+     the node-set kernel on the equivalent build nodes, and chunked split
+     evaluation of a 128-node level against one chunk.
+
+The streaming fit's device-memory peak above its start must stay within the
+budget its policy decided under (phase 6). The card's compute mode must be
+Default: the elastic phase runs three processes on it.
 
 It prints a JSON line of per-kernel numbers, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. It imports nothing
@@ -118,19 +135,22 @@ def main(argv=None) -> int:
     from repro_torch.data.synthetic import make_classification
     from repro_torch.kernels import _build
     from repro_torch.kernels import ellpack_bin as k_bin
-    from repro_torch.kernels import forest as k_forest
-    from repro_torch.kernels import histogram as k_hist
-    from repro_torch.kernels import partition as k_part
+    from repro_torch.kernels import launch_counts as read_counts
+    from repro_torch.kernels import reset_launch_counts as zero_counts
 
     dev = torch.device("cuda", 0)
-    kernels = {"histogram": k_hist, "partition": k_part, "forest": k_forest, "bin_values": k_bin}
-
-    def zero_counts():
-        for mod in kernels.values():
-            mod.launches = 0
-
-    def read_counts():
-        return {name: mod.launches for name, mod in kernels.items()}
+    # the kernels each path must launch
+    node_path = ("build_histogram_nodes", "partition_rows", "predict_forest", "bin_values")
+    elastic_path = ("build_histogram", "partition_rows", "predict_forest", "bin_values")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"card: {card}")
+    if card.rsplit(",", 1)[-1].strip() != "Default":
+        raise SystemExit(f"the card's compute mode is not Default ({card}): the elastic "
+                         "phase runs a coordinator and two workers on it")
 
     # 1. build ---------------------------------------------------------------
     _build.build_all()
@@ -186,7 +206,7 @@ def main(argv=None) -> int:
     print(f"in-core path launches: {json.dumps(in_core_launches)}")
     if booster.decision_.mode != "in_core":
         raise SystemExit("the in-core path did not train in core")
-    if not all(v > 0 for v in in_core_launches.values()):
+    if not all(in_core_launches[k] > 0 for k in node_path):
         raise SystemExit(f"a kernel of the in-core path was never launched: {in_core_launches}")
     if not (np.all(np.isfinite(margin)) and margin.shape == (100_000,) and eval_auc > 0.7):
         raise SystemExit(f"in-core path output wrong: shape {margin.shape}, auc {eval_auc}")
@@ -288,12 +308,18 @@ def main(argv=None) -> int:
         if sb.decision_.mode != "out_of_core":
             raise SystemExit(f"the streaming path decided {sb.decision_.mode!r}")
         per_pass = n_pages * stream_params["max_depth"] * len(sb.trees)
-        if not (stream_launches["histogram"] == per_pass == stream_launches["partition"]):
+        if not (stream_launches["build_histogram_nodes"] == per_pass
+                == stream_launches["partition_rows"]):
             raise SystemExit(f"histogram/partition not launched once per page and level: "
                              f"{stream_launches}, expected {per_pass}")
-        if not all(v > 0 for v in stream_launches.values()):
+        if not all(stream_launches[k] > 0 for k in node_path):
             raise SystemExit(f"a kernel of the streaming path was never launched: "
                              f"{stream_launches}")
+        print(f"streaming memory: peak above start {stream_peak - stream_base} B within the "
+              f"policy's budget {budget} B: {stream_peak - stream_base <= budget}")
+        if stream_peak - stream_base > budget:
+            raise SystemExit(f"the streaming fit peaked {stream_peak - stream_base} B above "
+                             f"its start, over the {budget} B budget it decided under")
         if abs(stream_auc - core_auc) > AUC_TOLERANCE:
             raise SystemExit(f"streaming AUC {stream_auc} vs in-core {core_auc}")
         if not stream_peak < in_core_peak:
@@ -336,10 +362,15 @@ def main(argv=None) -> int:
     print(f"determinism: two streaming fits on {sub} rows ({det[0].pages.n_pages} pages, "
           f"staging_depth=2) grew {len(det[0].trees)} identical trees")
 
-    # launches: both paths' runs, each counted from zero (per path above)
+    # 8. elastic multi-worker path -------------------------------------------
+    elastic_launches, window_row = elastic_phase(args.seed, dev, params, elastic_path)
+    results.insert(1, window_row)
+
+    # launches: the three paths' runs, each counted from zero (per path above)
     for r in results:
-        counter = r.pop("counter")
-        r["launches"] = in_core_launches[counter] + stream_launches[counter]
+        r["launches"] = sum(
+            path[r["name"]] for path in (in_core_launches, stream_launches, elastic_launches)
+        )
     print(json.dumps({"kernels": results}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -350,6 +381,295 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
     }}))
     return 0
+
+
+def elastic_phase(seed: int, dev, params: dict, path_kernels) -> tuple[dict, dict]:
+    """Phase 8: the elastic multi-worker path (see the module docstring).
+    Returns the path's launch counts (coordinator plus run A's workers) and
+    the level-window kernel's row of the kernels line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.booster import BoosterParams, GradientBooster
+    from repro_torch.core.ellpack import rows_per_page
+    from repro_torch.core.objectives import auc
+    from repro_torch.core.policy import ExecutionPolicy
+    from repro_torch.data.dmatrix import IterDMatrix, PagedDMatrix
+    from repro_torch.data.synthetic import make_classification
+    from repro_torch.distributed import ElasticConfig, ElasticTrainer, prepare_shards
+    from repro_torch.fault import FaultPlan, FaultSpec
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    n_rows, n_trees, depth = 400_000, 4, params["max_depth"]
+    t0 = time.perf_counter()
+    X, y = make_classification(n_rows, 500, seed=seed)
+    Xe, ye = make_classification(50_000, 500, seed=seed, batch=2)
+    print(f"elastic data: {n_rows} x 500 train, 50000 x 500 eval, "
+          f"{time.perf_counter() - t0:.1f} s")
+    eparams = BoosterParams(**dict(params, n_estimators=n_trees))
+    cfg = ElasticConfig(n_workers=2)
+    kill = FaultPlan.of(FaultSpec(site="elastic.worker.iteration", at=3, action="kill",
+                                  match={"worker": "w1"}))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_elastic_") as root:
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dirs = prepare_shards(X, y, 2, f"{root}/shards", max_bin=256, page_bytes=PAGE_BYTES,
+                              device=dev)
+        prep_s = time.perf_counter() - t0
+        shard_rows = [[nr for _, nr in PagedDMatrix(d).page_set().page_extents] for d in dirs]
+        print(f"elastic shards: prepare_shards={prep_s:.3f} s (host sketch of all rows, "
+              f"binning on the card, pages to disk); page rows per shard {shard_rows}")
+        half, rpp = n_rows // 2, rows_per_page(500, PAGE_BYTES)
+        if shard_rows != [[min(rpp, half - lo) for lo in range(0, half, rpp)]] * 2:
+            raise SystemExit(f"unexpected shard pages {shard_rows}")
+
+        runs = {}
+        for label, plan in (("A", None), ("B", kill)):
+            t0 = time.perf_counter()
+            tr = ElasticTrainer(dirs, eparams, checkpoint_dir=f"{root}/ckpt_{label}",
+                                config=cfg, fault_plan=plan, device=dev)
+            booster = tr.fit()
+            torch.cuda.synchronize()
+            runs[label] = (tr, booster, time.perf_counter() - t0)
+            if label == "A":
+                margin = booster.predict_margin(Xe)  # the forest kernel, coordinator side
+                path = launch_counts()
+                for counts in tr.worker_launches.values():
+                    for k, v in counts.items():
+                        path[k] += v
+        (tr_a, a, a_s), (tr_b, b, b_s) = runs["A"], runs["B"]
+        per_worker = n_trees * depth * len(shard_rows[0])  # one shard per worker
+        print(f"elastic run A: fit={a_s:.3f} s (2 worker starts included) per_tree_s="
+              f"{[round(t, 4) for t in tr_a.tree_seconds]}")
+        print(f"elastic run B (w1 killed at its 3rd begin_tree): fit={b_s:.3f} s "
+              f"recoveries={tr_b.recoveries} recovery_s="
+              f"{[round(t, 4) for t in tr_b.recovery_seconds]} per_tree_s="
+              f"{[round(t, 4) for t in tr_b.tree_seconds]} (after the recovery w0 serves "
+              f"both shards)")
+        rpc = tr_a.rpc
+        print(f"elastic pipes (run A): histogram bytes per level, both shards, per tree "
+              f"{ {d: v // n_trees for d, v in sorted(rpc.hist_bytes_by_depth.items())} }; "
+              f"hist rpc {rpc.calls['hist']} calls wall={rpc.wall_s['hist']:.3f} s "
+              f"in workers={rpc.worker_s['hist']:.3f} s (pipe, pickle and waiting "
+              f"{rpc.wall_s['hist'] - rpc.worker_s['hist']:.3f} s, "
+              f"{rpc.reply_bytes['hist']} reply bytes); partition wall="
+              f"{rpc.wall_s['partition']:.3f} s in workers={rpc.worker_s['partition']:.3f} s")
+        print(f"elastic launches (run A, workers at shutdown): {json.dumps(tr_a.worker_launches)}; "
+              f"path total {json.dumps(path)}")
+        print("elastic events (run B): " + "; ".join(tr_b.events))
+        if sorted(tr_a.worker_launches) != ["w0", "w1"] or not all(
+            c["build_histogram"] == per_worker == c["partition_rows"]
+            and c["build_histogram_nodes"] == 0
+            for c in tr_a.worker_launches.values()
+        ):
+            raise SystemExit(f"the workers did not launch the level-window histogram and "
+                             f"partition once per page and level ({per_worker}) and the "
+                             f"node-set histogram never: {tr_a.worker_launches}")
+        if not all(path[k] > 0 for k in path_kernels):
+            raise SystemExit(f"a kernel of the elastic path was never launched: {path}")
+        if not (tr_a.recoveries == 0 and tr_b.recoveries == 1
+                and any("re-assigning shard 1 -> w0" in e for e in tr_b.events)
+                and any("resumed 2 trees" in e for e in tr_b.events)):
+            raise SystemExit(f"run B did not recover once by reassignment and resume: "
+                             f"{tr_b.events}")
+        if not (len(a.trees) == len(b.trees) == n_trees and all(
+            torch.equal(u, v) for ta, tb in zip(a.trees, b.trees) for u, v in zip(ta, tb)
+        )):
+            raise SystemExit("the recovered forest differs from the uninterrupted one")
+        print("elastic chaos: run B's forest == run A's (every TreeArrays field, bitwise)")
+
+        single = GradientBooster(eparams, device=dev, policy=ExecutionPolicy(mode="out_of_core"))
+        batches = [(X[i : i + 100_000], y[i : i + 100_000]) for i in range(0, n_rows, 100_000)]
+        t0 = time.perf_counter()
+        single.fit(IterDMatrix(batches, max_bin=256, cuts=a.cuts, cache_dir=f"{root}/single",
+                               page_bytes=PAGE_BYTES, device=dev))
+        single_s = time.perf_counter() - t0
+        elastic_auc, single_auc = auc(ye, margin), auc(ye, single.predict_margin(Xe))
+        print(f"elastic eval_auc after {n_trees} trees={elastic_auc:.6f} single-process "
+              f"streaming={single_auc:.6f} (fit {single_s:.3f} s, {single.pages.n_pages} pages) "
+              f"|diff|={abs(elastic_auc - single_auc):.6f}")
+        if not (np.all(np.isfinite(margin)) and margin.shape == (50_000,)):
+            raise SystemExit("elastic forest's margins are not finite")
+        if abs(elastic_auc - single_auc) > AUC_TOLERANCE:
+            raise SystemExit(f"elastic AUC {elastic_auc} vs single-process {single_auc}")
+
+        elastic_transport_probe(dev, dirs[0], rpc.worker_s["hist"] / rpc.calls["hist"])
+        page = torch.from_numpy(next(PagedDMatrix(dirs[0]).page_set().iter_pages())[1].bins)
+        page = page.to(dev)
+        row = window_kernel_check(seed, dev, page)
+        split_chunk_check(seed, dev, page, a.cuts)
+    return path, row
+
+
+def elastic_transport_probe(dev, shard_dir: str, worker_pass_s: float) -> None:
+    """Where a worker's time goes: one shard's histogram pass (3 pages, the
+    root level) run in this process, against the workers' mean hist-op
+    seconds; and one 64-slot level histogram (65 MB) framed through a pipe
+    between two threads of this process."""
+    import os
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data.dmatrix import PagedDMatrix
+    from repro_torch.distributed.elastic import recv_msg_deadline, send_msg
+    from repro_torch.kernels import histogram as k_hist
+    from repro_torch.kernels import ops
+
+    dm = PagedDMatrix(shard_dir)
+    ps = dm.page_set()
+    g = torch.ones(dm.n_rows, device=dev)
+    positions = {i: torch.zeros(nr, dtype=torch.int32, device=dev)
+                 for i, (_, nr) in enumerate(ps.page_extents)}
+    saved = k_hist.launches_window
+    spans = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ops.build_histogram_paged(ps.stream(device=dev), g, g, positions, 0, 1, dm.n_bins)
+        torch.cuda.synchronize()
+        spans.append(time.perf_counter() - t0)
+    k_hist.launches_window = saved
+    hist = np.zeros((64, 500, 255, 2), np.float32)
+    r, w = os.pipe()
+    try:
+        t0 = time.perf_counter()
+        writer = threading.Thread(target=send_msg, args=(w, {"hist": hist}))
+        writer.start()
+        _, nbytes = recv_msg_deadline(r, time.monotonic() + 120)
+        writer.join()
+        pipe_s = time.perf_counter() - t0
+    finally:
+        os.close(r)
+        os.close(w)
+    print(f"elastic transport: one shard's histogram pass ({ps.n_pages} pages) in this "
+          f"process {[round(t, 4) for t in spans]} s against {worker_pass_s:.4f} s per hist "
+          f"op in the workers; a {nbytes}-byte histogram frame through a pipe (two threads) "
+          f"{pipe_s:.4f} s = {nbytes / pipe_s / 1e9:.3f} GB/s")
+
+
+def window_kernel_check(seed: int, dev, page) -> dict:
+    """The level-window kernel on one staged page at level 7 of a depth-8
+    tree (128 level nodes, 64 build slots and 64 derived, 10% of rows
+    inactive, 5% past the window): against its plain version, bit for bit
+    against the node-set kernel on the equivalent build nodes, and timed
+    beside its bound and one library call. Restores the launch counts."""
+    import torch
+
+    from repro_torch.kernels import histogram as k_hist
+    from repro_torch.kernels import ref
+
+    n, m = page.shape
+    n_bins = 255
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    g = torch.randn(n, generator=gen, device=dev)
+    h = torch.rand(n, generator=gen, device=dev)
+    pos = torch.randint(0, 128, (n,), generator=gen, device=dev, dtype=torch.int32)
+    pos[torch.rand(n, generator=gen, device=dev) < 0.05] += 128
+    pos[torch.rand(n, generator=gen, device=dev) < 0.1] = -1
+    left = torch.randint(0, 2, (64,), generator=gen, device=dev).bool()
+    slots = torch.arange(64, device=dev, dtype=torch.int32)
+    minus = torch.full_like(slots, -1)
+    node_map = torch.stack([torch.where(left, slots, minus), torch.where(left, minus, slots)],
+                           dim=1).reshape(128)
+    build_nodes = 127 + 2 * slots + (~left).to(torch.int32)
+    glob = torch.where(pos >= 0, pos + 127, -1)
+
+    def k4():
+        return k_hist.build_histogram(page, g, h, pos, 64, n_bins, node_map)
+
+    def plain():
+        return ref.build_histogram(page, g, h, pos, 64, n_bins, node_map)
+
+    saved = k_hist.launches, k_hist.launches_window
+    got, want = k4(), plain()
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+        raise SystemExit(f"level-window kernel disagrees with its plain version: max err {err}")
+    if not torch.equal(got, k_hist.build_histogram_nodes(page, g, h, glob, build_nodes, n_bins)):
+        raise SystemExit("level-window kernel differs from the node-set kernel on the "
+                         "equivalent build nodes")
+    if not torch.equal(got, k4()):
+        raise SystemExit("level-window kernel is not deterministic run to run")
+    slot = ref.apply_node_map(pos, node_map).to(torch.int64)
+    valid = (page != 255) & (slot[:, None] >= 0)
+    cell = (slot[:, None] * (m * n_bins) + torch.arange(m, device=dev) * n_bins + page)[valid]
+    rows = torch.nonzero(valid)[:, 0]
+    gh = torch.stack([g[rows], h[rows]], dim=1)
+    del valid, rows
+    lib_out = torch.zeros(64 * m * n_bins, 2, device=dev)
+    lib_ms = _time_ms(lambda: lib_out.index_put_((cell,), gh, accumulate=True), 3)
+    n_matched = int((slot >= 0).sum())
+    del cell, gh, lib_out
+    # the bin row and g, h of each matched row, every position once, the
+    # node_map, and the output
+    wb, wb_by = _bound(
+        n_matched * (m * page.element_size() + 8) + 4 * n + 128 * 4 + 64 * m * n_bins * 8,
+        2.0 * n_matched * m,
+    )
+    row = dict(
+        name="build_histogram", route="cuda",
+        source="src/repro_torch/kernels/csrc/hist_window.cu",
+        replaces="src/repro/kernels/histogram.py:158",
+        max_abs_err=err, ms=_time_ms(k4, 10), plain_ms=_time_ms(plain, 2),
+        bound_ms=wb, bound_by=wb_by, library_ms=lib_ms,
+    )
+    k_hist.launches, k_hist.launches_window = saved
+    print(f"kernel build_histogram on a staged page ({n} x {m} uint8, level 7, 64 of 128 "
+          f"nodes built, {n_matched} rows matched): max_abs_err={err:.3g} (rtol=atol=1e-5), "
+          f"== build_histogram_nodes on the equivalent build nodes (bitwise); "
+          f"ms={row['ms']:.4f} bound_ms={wb:.4f} ({wb_by}) plain_ms={row['plain_ms']:.4f} "
+          f"library_ms={lib_ms:.4f} (index_put_ accumulate)")
+    return row
+
+
+def split_chunk_check(seed: int, dev, page, cuts) -> None:
+    """Split evaluation of a full 128-node level (128 x 500 x 255, built by
+    the level-window kernel on one page) in node chunks against one chunk:
+    every field equal; prints both times and their temporaries' peaks."""
+    import torch
+
+    from repro_torch.core import split as split_mod
+    from repro_torch.core.booster import bin_valid_from_cuts
+    from repro_torch.kernels import histogram as k_hist
+
+    n = page.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    g = torch.randn(n, generator=gen, device=dev)
+    h = torch.rand(n, generator=gen, device=dev)
+    pos = torch.randint(0, 128, (n,), generator=gen, device=dev, dtype=torch.int32)
+    pos[torch.rand(n, generator=gen, device=dev) < 0.1] = -1
+    saved = k_hist.launches_window
+    hist = k_hist.build_histogram(page, g, h, pos, 128, 255)
+    k_hist.launches_window = saved
+    live = pos >= 0
+    node_g = torch.zeros(128, device=dev).index_add_(0, pos[live].long(), g[live])
+    node_h = torch.zeros(128, device=dev).index_add_(0, pos[live].long(), h[live])
+    args = (hist, node_g, node_h, bin_valid_from_cuts(cuts, 255, dev), split_mod.SplitParams())
+    chunk_bytes = split_mod.CHUNK_BYTES
+    out, ms, peak = {}, {}, {}
+    try:
+        for label, cb in (("chunked", chunk_bytes), ("one_chunk", 1 << 62)):
+            split_mod.CHUNK_BYTES = cb
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            out[label] = split_mod.evaluate_splits(*args)
+            torch.cuda.synchronize()
+            peak[label] = torch.cuda.max_memory_allocated(dev) - base
+            ms[label] = _time_ms(lambda: split_mod.evaluate_splits(*args), 3)
+    finally:
+        split_mod.CHUNK_BYTES = chunk_bytes
+    fields = out["chunked"].__dataclass_fields__
+    if not all(torch.equal(getattr(out["chunked"], f), getattr(out["one_chunk"], f))
+               for f in fields):
+        raise SystemExit("chunked split evaluation differs from one chunk")
+    nodes = max(1, chunk_bytes // (500 * 255 * 4))
+    print(f"split evaluation at 128 x 500 x 255: chunks of {nodes} nodes == one chunk "
+          f"(every field, bitwise); chunked {ms['chunked']:.3f} ms, peak "
+          f"{peak['chunked']} B above its input; one chunk {ms['one_chunk']:.3f} ms, peak "
+          f"{peak['one_chunk']} B")
 
 
 def _peak_breakdown(trace: list[dict]) -> tuple[int, list[tuple[str, int, int]]]:
@@ -511,7 +831,7 @@ def kernel_checks(seed: int, dev, dm, booster, X, Xe) -> list[dict]:
     results.append(dict(
         name="build_histogram_nodes", route="cuda",
         source="src/repro_torch/kernels/csrc/histogram.cu",
-        replaces="src/repro/kernels/histogram.py:214", counter="histogram",
+        replaces="src/repro/kernels/histogram.py:214",
         max_abs_err=err, ms=_time_ms(hist_k, 5), plain_ms=_time_ms(hist_p, 2),
         bound_ms=hb, bound_by=hb_by, library_ms=lib_ms,
     ))
@@ -533,7 +853,7 @@ def kernel_checks(seed: int, dev, dm, booster, X, Xe) -> list[dict]:
     results.append(dict(
         name="partition_rows", route="cuda",
         source="src/repro_torch/kernels/csrc/partition.cu",
-        replaces="src/repro/kernels/partition.py:82", counter="partition",
+        replaces="src/repro/kernels/partition.py:82",
         max_abs_err=0.0,
         ms=_time_ms(lambda: k_part.partition_rows(bins, level_pos, *part_args), 20),
         plain_ms=_time_ms(lambda: ref.partition_rows(bins, level_pos, *part_args), 5),
@@ -569,7 +889,7 @@ def kernel_checks(seed: int, dev, dm, booster, X, Xe) -> list[dict]:
     results.append(dict(
         name="predict_forest", route="cuda",
         source="src/repro_torch/kernels/csrc/forest.cu",
-        replaces="src/repro/kernels/forest.py:129", counter="forest",
+        replaces="src/repro/kernels/forest.py:129",
         max_abs_err=0.0,
         ms=_time_ms(lambda: k_forest.predict_forest(eval_bins, *f_args, m_in), 20),
         plain_ms=_time_ms(lambda: ref.predict_forest_bins(eval_bins, *f_args, m_in), 3),
@@ -623,7 +943,7 @@ def kernel_checks(seed: int, dev, dm, booster, X, Xe) -> list[dict]:
     results.append(dict(
         name="bin_values", route="cuda",
         source="src/repro_torch/kernels/csrc/ellpack_bin.cu",
-        replaces="src/repro/kernels/ellpack_bin.py:60", counter="bin_values",
+        replaces="src/repro/kernels/ellpack_bin.py:60",
         max_abs_err=0.0, ms=f32["ms"], plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
         bound_by=f32["bound_by"], library_ms=f32["library_ms"],
     ))

@@ -16,6 +16,11 @@ model, and the decision lands on ``decision_``:
 ``predict`` bins raw rows on the device (the CUDA binning kernel) and goes
 through `PackedForest` and the CUDA forest kernel.
 
+``resume(checkpoint, data)`` reloads a forest and replays its margins page
+by page, and ``fit(data, start_iteration=len(trees))`` boosts on from it:
+the single-process crash/resume path, and the recovery primitive of the
+elastic trainer (`repro_torch.distributed`).
+
 Everything runs on the CUDA device unless the caller passes
 ``device="cpu"``, which runs the plain PyTorch versions of the kernels on the
 host; asking for CUDA where there is none raises. Sampled training (Alg. 7),
@@ -215,12 +220,20 @@ class GradientBooster:
         eval_metric: str = "auto",
         verbose: bool = False,
         cuts: HistogramCuts | None = None,
+        start_iteration: int = 0,
     ) -> "GradientBooster":
         """Train on raw arrays, a batch source or a DMatrix; the policy's
-        decision lands on ``self.decision_``."""
+        decision lands on ``self.decision_``. ``start_iteration`` resumes
+        boosting from the trees held (see `resume`): it must equal their
+        count, and rounds ``start_iteration .. n_estimators - 1`` follow."""
         from repro_torch.data.dmatrix import as_dmatrix
 
         p = self.params
+        if start_iteration and len(self.trees) != start_iteration:
+            raise ValueError(
+                f"start_iteration={start_iteration} but the booster holds "
+                f"{len(self.trees)} trees; resume with start_iteration == len(trees)"
+            )
         self._packed_forest = None
         dm = as_dmatrix(data, y, max_bin=p.max_bin, cuts=cuts, device=self.device)
         decision = self.policy.decide(dm, p)
@@ -232,8 +245,8 @@ class GradientBooster:
             )
         self.cuts = dm.cuts
         if decision.mode == "in_core":
-            return self._fit_in_core(dm, eval_set, eval_metric, verbose)
-        return self._fit_external(dm, eval_set, eval_metric, verbose)
+            return self._fit_in_core(dm, eval_set, eval_metric, verbose, start_iteration)
+        return self._fit_external(dm, eval_set, eval_metric, verbose, start_iteration)
 
     def _eval_state(self, eval_set, cuts: HistogramCuts):
         """(device bins, labels, margins replaying the held trees) of the eval
@@ -252,16 +265,19 @@ class GradientBooster:
             )
         return eval_bins, eval_labels, eval_margin
 
-    def _boost(self, boost_round, eval_set, cuts, eval_metric, verbose) -> None:
-        """The boosting loop shared by both engines: per round, a tree from
-        ``boost_round()`` (which also updates the training margins), then
-        the checkpoint cadence, eval and early stopping."""
+    def _boost(
+        self, boost_round, eval_set, cuts, eval_metric, verbose, start_iteration
+    ) -> None:
+        """The boosting loop shared by both engines: per round from
+        ``start_iteration`` on, a tree from ``boost_round()`` (which also
+        updates the training margins), then the checkpoint cadence, eval and
+        early stopping."""
         p, pol = self.params, self.policy
         eval_bins, eval_labels, eval_margin = self._eval_state(eval_set, cuts)
         metric_name = self._metric_name(eval_metric)
         t0 = time.perf_counter()
         best_metric, best_iter = None, -1
-        for it in range(p.n_estimators):
+        for it in range(start_iteration, p.n_estimators):
             tree = boost_round()
             self.trees.append(tree)
             if pol.checkpoint_every and pol.checkpoint_dir and (it + 1) % pol.checkpoint_every == 0:
@@ -285,7 +301,9 @@ class GradientBooster:
                 break
         self.best_iteration_ = best_iter if best_iter >= 0 else len(self.trees) - 1
 
-    def _fit_in_core(self, dm, eval_set, eval_metric, verbose) -> "GradientBooster":
+    def _fit_in_core(
+        self, dm, eval_set, eval_metric, verbose, start_iteration
+    ) -> "GradientBooster":
         p, dev = self.params, self.device
         tp = p.tree_params()
         self.stats = TransferStats()
@@ -301,9 +319,10 @@ class GradientBooster:
         self.stats.host_to_device_bytes += host_bins.nbytes
         labels_t = torch.from_numpy(labels).to(dev)
 
-        self.base_margin_ = (
-            p.base_score if p.base_score is not None else self.objective.base_margin(labels)
-        )
+        if start_iteration == 0:
+            self.base_margin_ = (
+                p.base_score if p.base_score is not None else self.objective.base_margin(labels)
+            )
         margin = torch.full((labels.shape[0],), self.base_margin_, dtype=torch.float32, device=dev)
         # a refit boosts on from the trees already held, as the reference does
         for tree in self.trees:
@@ -321,7 +340,7 @@ class GradientBooster:
             margin = margin + p.learning_rate * res.tree.leaf_value[res.positions.to(torch.int64)]
             return res.tree
 
-        self._boost(boost_round, eval_set, dm.cuts, eval_metric, verbose)
+        self._boost(boost_round, eval_set, dm.cuts, eval_metric, verbose, start_iteration)
         return self
 
     # ----------------------------------------------- Alg. 6 (streaming path)
@@ -335,7 +354,9 @@ class GradientBooster:
             retry=self.policy.retry,
         )
 
-    def _fit_external(self, dm, eval_set, eval_metric, verbose) -> "GradientBooster":
+    def _fit_external(
+        self, dm, eval_set, eval_metric, verbose, start_iteration
+    ) -> "GradientBooster":
         from repro_torch.pipeline import DevicePageCache
 
         p, dev = self.params, self.device
@@ -368,7 +389,7 @@ class GradientBooster:
             self.margins_ = self.margins_ + p.learning_rate * leaf
             return res.tree
 
-        self._boost(boost_round, eval_set, dm.cuts, eval_metric, verbose)
+        self._boost(boost_round, eval_set, dm.cuts, eval_metric, verbose, start_iteration)
         return self
 
     def _build_tree_streaming(self, g, h, n_bins, bin_valid, tp, cuts) -> TreeBuildResult:
@@ -600,4 +621,58 @@ class GradientBooster:
         self.trees = [
             TreeArrays(*[field(t, f) for f in TreeArrays._fields]) for t in trees
         ]
+        return self
+
+    @classmethod
+    def resume(
+        cls,
+        checkpoint_path: str,
+        data,
+        *,
+        policy: ExecutionPolicy | None = None,
+        device: str | torch.device = "cuda",
+    ) -> "GradientBooster":
+        """Restart out-of-core training from a checkpoint of either package.
+
+        Reloads the forest and cuts, rebuilds the margins by streaming the
+        data's pages (a `PagedDMatrix` over the original page cache needs no
+        raw data) and returns a booster ready for ``fit(data,
+        start_iteration=len(trees))``. The checkpoint's cuts are
+        authoritative: raw data is binned with them, and a DMatrix must
+        carry bit-identical cuts, or this raises. The margins replay the
+        reference's arithmetic exactly (numpy f32, ``margins[page] += lr *
+        pred`` tree by tree), so they equal the incremental ones bit for bit.
+        """
+        from repro_torch.data.dmatrix import DMatrix, as_dmatrix
+
+        base = cls.load(checkpoint_path, device=device)
+        self = cls(
+            base.params, policy=policy or ExecutionPolicy(mode="out_of_core"), device=device
+        )
+        self.trees = base.trees
+        self.base_margin_ = base.base_margin_
+        if isinstance(data, DMatrix):
+            dm = data
+            if not (
+                np.array_equal(dm.cuts.values, base.cuts.values)
+                and np.array_equal(dm.cuts.ptrs, base.cuts.ptrs)
+            ):
+                raise ValueError(
+                    "DMatrix quantization differs from the checkpoint's cuts; its pages "
+                    "were binned with other thresholds than the restored trees split on. "
+                    "Reopen the original page cache (PagedDMatrix) or pass the raw data."
+                )
+        else:
+            dm = as_dmatrix(data, max_bin=base.params.max_bin, cuts=base.cuts, device=device)
+        self.cuts = base.cuts
+        self.pages = dm.page_set()
+        self.stats = self.pages.stats
+        margins = np.full(self.pages.n_rows, self.base_margin_, np.float32)
+        lr, md = self.params.learning_rate, self.params.max_depth
+        for tree in self.trees:
+            for sp in self._stream():
+                pred = predict_tree_bins(tree, sp.device, md).cpu().numpy()
+                sl = slice(sp.host.row_offset, sp.host.row_offset + sp.host.n_rows)
+                margins[sl] += lr * pred
+        self.margins_ = torch.from_numpy(margins).to(self.device)
         return self

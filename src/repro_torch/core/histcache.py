@@ -114,9 +114,12 @@ def expand_level(parent_hist: Tensor, built: Tensor, build_left: Tensor) -> Tens
     its histogram, the sibling is ``parent - built``."""
     derived = parent_hist - built
     mask = build_left.reshape((-1,) + (1,) * (built.dim() - 1))
-    left = torch.where(mask, built, derived)
-    right = torch.where(mask, derived, built)
-    return torch.stack([left, right], dim=1).reshape((2 * built.shape[0],) + built.shape[1:])
+    # both children written straight into the level histogram: no left and
+    # right temporaries beside it
+    full = torch.empty((built.shape[0], 2) + built.shape[1:], dtype=built.dtype, device=built.device)
+    torch.where(mask, built, derived, out=full[:, 0])
+    torch.where(mask, derived, built, out=full[:, 1])
+    return full.reshape((2 * built.shape[0],) + built.shape[1:])
 
 
 class HistogramStore:

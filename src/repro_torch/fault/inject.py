@@ -18,6 +18,9 @@ Instrumented sites of the port:
   "page_store.decode"           ctx: index, codec   (post-CRC decode; a
                                 planted or natural failure here surfaces
                                 as the non-retryable PageDecodeError)
+  "elastic.rpc"                 ctx: worker, op     (repro_torch.distributed
+                                .elastic_worker, before each op)
+  "elastic.worker.iteration"    ctx: worker, iteration  (at each begin_tree)
 
 Triggering is deterministic by construction: each site keeps a call counter
 and a spec fires when the counter lands in ``[at, at + count)`` (``count=-1``
@@ -26,8 +29,8 @@ context. Two runs that make the same calls hit the same faults — the chaos
 test's reproducibility rests on exactly this.
 
 The plan crosses process boundaries as JSON in the ``REPRO_FAULT_PLAN``
-environment variable (:func:`install_from_env`), for the subprocess workers
-of the distributed slice.
+environment variable (:func:`install_from_env`), for the elastic trainer's
+subprocess workers.
 """
 from __future__ import annotations
 

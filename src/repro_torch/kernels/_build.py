@@ -9,14 +9,16 @@ raw device pointers (``tensor.data_ptr()``) and the current stream as Python
 ints declared ``c_void_p``.
 
 Libraries go to ``build/torch_kernels/`` at the repository root, named by a
-hash of their source and flags, so an edited source rebuilds and an
-unchanged one is reused. Nothing here runs at import time.
+hash of their source, the local headers it includes (``#include "..."``)
+and the flags, so an edited source or header rebuilds and an unchanged one
+is reused. Nothing here runs at import time.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,7 +27,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("histogram", "partition", "forest", "ellpack_bin")
+SOURCES = ("histogram", "hist_window", "partition", "forest", "ellpack_bin")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -42,6 +44,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 SIGNATURES = {
     "histogram": ("hist_nodes_launch", [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P,
                                         _P, _P, _I, _I, _I, _I, _P]),
+    "hist_window": ("hist_window_launch", [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
+                                           _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "partition": ("partition_launch", [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P]),
     "forest": ("forest_launch", [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                                  _P]),
@@ -67,8 +71,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _source_bytes(path: Path, seen: set[Path]) -> bytes:
+    """A source's bytes followed by those of every local header it includes,
+    recursively, each once."""
+    if path in seen:
+        return b""
+    seen.add(path)
+    text = path.read_bytes()
+    return text + b"".join(
+        _source_bytes(path.parent / inc.decode(), seen) for inc in _LOCAL_INCLUDE.findall(text)
+    )
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = _source_bytes(CSRC / f"{name}.cu", set())
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}.{digest}.so"
 

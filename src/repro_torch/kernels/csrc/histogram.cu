@@ -9,48 +9,17 @@
 // The TPU kernel turned the scatter into two one-hot matmuls because the TPU
 // has no atomics. Here the scatter is done directly, as the paper's CUDA
 // builder does it: each block privatises a histogram tile in shared memory
-// and scatters into it with atomics.
-//
-// Determinism. Float atomics add in a different order every run, so two fits
-// could grow different trees. Every addition here is an integer one instead:
-// g and h are converted to 64-bit fixed point with a power-of-two scale
-// derived from max|g| and max|h| over the matched rows, so that no partial
-// sum of up to n_rows terms can overflow (n * max * scale < 2^62). Integer
-// addition is associative, so the shared- and global-memory atomics give the
-// same bits in any order. The fixed-point grid is max * 2^-(62 - log2 n),
-// about 2^-42 of max|g| at 1M rows: the result is the exact sum rounded once
-// to f32, more accurate than a sequential f32 sum.
+// and scatters into it with integer atomics (deterministic; see
+// hist_common.cuh, which also holds passes 2 and 3).
 //
 // Passes (all on the caller's stream, one C entry point):
 //   1. row_slot: each row's build slot (first s with build_nodes[s] == pos),
 //      or -1, matched against the build-node table staged in shared memory;
-//      also max|g|, max|h| over matched rows (atomicMax on float bits, which
-//      is order-free for non-negative floats).
-//   2. hist: grid (feature tiles, row chunks, slot tiles). A block zeroes a
-//      (slot_tile, feat_tile, B, 2) int64 tile in shared memory, scatters its
-//      rows into it, and adds the non-zero cells to a global int64 histogram.
-//   3. finalize: int64 -> f32 (one exact power-of-two division, one rounding).
-//
-// What bounds it on this card: bytes. The bins matrix (n * m bytes as uint8)
-// is read once per slot tile; g, h, slot are re-read per feature tile from
-// L2. Blocks are ordered feature-tile fastest so the blocks in flight share
-// one row chunk and its bins stay in L2. With one feature per block (deep
-// levels) a warp reads a column, 32 rows apart by m bytes: the sectors are
-// shared by neighbouring feature blocks in L2, not in one request. Making
-// this coalesced (staging row tiles through shared memory) is later work.
-#include <cuda_runtime.h>
-#include <stdint.h>
+//      also max|g|, max|h| over matched rows.
+//   2-3. the shared scatter and finalize (hist_common.cuh).
+#include "hist_common.cuh"
 
 namespace {
-
-constexpr int kMissingBin = 255;
-
-__device__ __forceinline__ double fixed_scale(unsigned int max_bits, int lg_rows) {
-  float mx = __uint_as_float(max_bits);
-  int e = 0;
-  if (mx > 0.0f) frexpf(mx, &e);  // mx < 2^e
-  return ldexp(1.0, 62 - lg_rows - e);
-}
 
 __global__ void row_slot_kernel(const int32_t* __restrict__ pos,
                                 const int32_t* __restrict__ nodes, int n_rows,
@@ -80,94 +49,7 @@ __global__ void row_slot_kernel(const int32_t* __restrict__ pos,
       mh = max(mh, __float_as_uint(fabsf(h[r])));
     }
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    mg = max(mg, __shfl_xor_sync(0xffffffffu, mg, off));
-    mh = max(mh, __shfl_xor_sync(0xffffffffu, mh, off));
-  }
-  if ((threadIdx.x & 31) == 0) {
-    atomicMax(&absmax[0], mg);
-    atomicMax(&absmax[1], mh);
-  }
-}
-
-template <typename BinT>
-__global__ void hist_kernel(const BinT* __restrict__ bins, int n_rows, int m,
-                            int n_bins, int n_slots, const float* __restrict__ g,
-                            const float* __restrict__ h,
-                            const int32_t* __restrict__ slot,
-                            const unsigned int* __restrict__ absmax, int lg_rows,
-                            int slot_tile, int feat_tile, int rows_per_chunk,
-                            unsigned long long* __restrict__ acc) {
-  extern __shared__ unsigned long long sacc[];
-  const int f0 = blockIdx.x * feat_tile;
-  const int s0 = blockIdx.z * slot_tile;
-  const int nf = min(feat_tile, m - f0);
-  const int ns = min(slot_tile, n_slots - s0);
-  const long r0 = (long)blockIdx.y * rows_per_chunk;
-  const long r1 = (r0 + rows_per_chunk < n_rows) ? r0 + rows_per_chunk : (long)n_rows;
-  const int cells = ns * nf * n_bins * 2;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) sacc[i] = 0ull;
-  __syncthreads();
-
-  const double sg = fixed_scale(absmax[0], lg_rows);
-  const double sh = fixed_scale(absmax[1], lg_rows);
-  const long total = (r1 - r0) * nf;
-  for (long i = threadIdx.x; i < total; i += blockDim.x) {
-    const long r = r0 + i / nf;
-    const int fl = (int)(i % nf);
-    const int s = slot[r] - s0;
-    if (s < 0 || s >= ns) continue;
-    const int b = (int)bins[r * m + f0 + fl];
-    if (b == kMissingBin || b >= n_bins) continue;
-    const long long qg = __double2ll_rn((double)g[r] * sg);
-    const long long qh = __double2ll_rn((double)h[r] * sh);
-    const int c = ((s * nf + fl) * n_bins + b) * 2;
-    atomicAdd(&sacc[c], (unsigned long long)qg);
-    atomicAdd(&sacc[c + 1], (unsigned long long)qh);
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const unsigned long long v = sacc[i];
-    if (v == 0ull) continue;
-    const int pair = i >> 1;
-    const int b = pair % n_bins;
-    const int fl = (pair / n_bins) % nf;
-    const int s = pair / n_bins / nf;
-    const long gi = ((((long)(s0 + s) * m + f0 + fl) * n_bins + b) * 2) + (i & 1);
-    atomicAdd(&acc[gi], v);
-  }
-}
-
-__global__ void finalize_kernel(const long long* __restrict__ acc, long n_values,
-                                const unsigned int* __restrict__ absmax,
-                                int lg_rows, float* __restrict__ out) {
-  const double sg = fixed_scale(absmax[0], lg_rows);
-  const double sh = fixed_scale(absmax[1], lg_rows);
-  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n_values;
-       i += (long)gridDim.x * blockDim.x) {
-    out[i] = (float)((double)acc[i] / ((i & 1) ? sh : sg));
-  }
-}
-
-template <typename BinT>
-cudaError_t launch_hist(const BinT* bins, int n_rows, int m, int n_bins,
-                        int n_slots, const float* g, const float* h,
-                        const int32_t* slot, const unsigned int* absmax,
-                        int lg_rows, int slot_tile, int feat_tile,
-                        int rows_per_chunk, unsigned long long* acc,
-                        cudaStream_t stream) {
-  const int smem = slot_tile * feat_tile * n_bins * 2 * (int)sizeof(unsigned long long);
-  cudaError_t err = cudaFuncSetAttribute(
-      hist_kernel<BinT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((m + feat_tile - 1) / feat_tile,
-            (n_rows + rows_per_chunk - 1) / rows_per_chunk,
-            (n_slots + slot_tile - 1) / slot_tile);
-  hist_kernel<BinT><<<grid, 512, smem, stream>>>(
-      bins, n_rows, m, n_bins, n_slots, g, h, slot, absmax, lg_rows, slot_tile,
-      feat_tile, rows_per_chunk, acc);
-  return cudaGetLastError();
+  hist::flush_absmax(mg, mh, absmax);
 }
 
 }  // namespace
@@ -183,9 +65,7 @@ extern "C" int hist_nodes_launch(const void* bins, int bins_u8, int n_rows, int 
                                  int lg_rows, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const long n_values = (long)n_slots * m * n_bins * 2;
-  cudaError_t err = cudaMemsetAsync(absmax, 0, 2 * sizeof(unsigned int), stream);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(acc, 0, n_values * sizeof(unsigned long long), stream);
+  cudaError_t err = hist::clear_scratch(absmax, acc, n_values, stream);
   if (err != cudaSuccess) return (int)err;
 
   const long slot_want = ((long)n_rows + 255) / 256;
@@ -195,18 +75,7 @@ extern "C" int hist_nodes_launch(const void* bins, int bins_u8, int n_rows, int 
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  if (bins_u8) {
-    err = launch_hist((const uint8_t*)bins, n_rows, m, n_bins, n_slots, g, h, slot,
-                      absmax, lg_rows, slot_tile, feat_tile, rows_per_chunk, acc, stream);
-  } else {
-    err = launch_hist((const int32_t*)bins, n_rows, m, n_bins, n_slots, g, h, slot,
-                      absmax, lg_rows, slot_tile, feat_tile, rows_per_chunk, acc, stream);
-  }
-  if (err != cudaSuccess) return (int)err;
-
-  const long fin_want = (n_values + 255) / 256;
-  const int fin_blocks = (int)(fin_want < 8192 ? fin_want : 8192);
-  finalize_kernel<<<fin_blocks, 256, 0, stream>>>((const long long*)acc, n_values,
-                                                  absmax, lg_rows, out);
-  return (int)cudaGetLastError();
+  return (int)hist::scatter_finalize(bins, bins_u8, n_rows, m, n_bins, n_slots, g, h,
+                                     slot, absmax, lg_rows, slot_tile, feat_tile,
+                                     rows_per_chunk, acc, out, stream);
 }

@@ -1,10 +1,6 @@
 """Dispatch by tensor device: CUDA kernel for CUDA tensors, plain version
 for CPU tensors.
 
-Kernel 4 of the reference (`build_histogram`, the level-window and
-``node_map`` path) is not ported yet: `build_histogram_paged` takes the
-fused ``build_nodes`` path only and raises for the other.
-
 Counterpart of `repro.kernels.ops`. There is no ``impl`` switch and no
 environment override: a CUDA tensor always launches the hand-written kernel
 (which raises on anything it cannot take), and only a CPU tensor runs the
@@ -31,6 +27,15 @@ def build_histogram_nodes(bins, g, h, positions, build_nodes, n_bins: int):
     return _ref.build_histogram_nodes(bins, g, h, positions, build_nodes, n_bins)
 
 
+def build_histogram(bins, g, h, positions, n_nodes: int, n_bins: int, node_map=None):
+    """Level-window histogram over level-local positions, after an optional
+    ``node_map`` remap: ``out[k]`` is the (m, n_bins, 2) histogram of the
+    rows whose slot is k (kernel 4)."""
+    if bins.is_cuda:
+        return _histogram.build_histogram(bins, g, h, positions, n_nodes, n_bins, node_map)
+    return _ref.build_histogram(bins, g, h, positions, n_nodes, n_bins, node_map)
+
+
 def build_histogram_paged(
     stream,
     g,
@@ -42,34 +47,44 @@ def build_histogram_paged(
     node_map=None,
     build_nodes=None,
 ):
-    """Page-batched histogram: the sum of per-page node-set histograms over
-    one stream pass.
+    """Page-batched histogram: the sum of per-page histograms over one
+    stream pass.
 
     ``stream`` yields `StreamedPage`s whose host view has ``row_offset`` /
     ``n_rows`` and whose device tensor is the staged uint8 page;
-    ``positions[page.index]`` holds that page's global tree positions. Each
-    page's raw positions go straight to `build_histogram_nodes` (one launch
-    per page); pages are summed in f32 in stream order. ``offset`` is
-    unused on this path and ``count`` must equal the build-set size; the
-    ``node_map`` path needs kernel 4 and raises.
+    ``positions[page.index]`` holds that page's global tree positions. One
+    kernel launch per page; pages are summed in f32 in stream order.
+
+    With ``build_nodes`` (the fused path) each page's raw positions go
+    straight to `build_histogram_nodes`; ``offset`` is unused then and
+    ``count`` must equal the build-set size. Without it, the node window is
+    ``[offset, offset + window)``, ``window`` being the node_map's length
+    (or ``count`` for a full build): positions are made level-local by an
+    elementwise step, rows outside the window get -1, and `build_histogram`
+    builds the ``count`` slots, rows at derived nodes contributing to none.
     """
-    if node_map is not None or build_nodes is None:
-        raise NotImplementedError(
-            "the level-window/node_map histogram (kernel 4, "
-            "kernels/histogram.py::build_histogram) is not ported yet; pass build_nodes"
-        )
-    if count != build_nodes.shape[0]:
+    if build_nodes is not None and count != build_nodes.shape[0]:
         raise ValueError(f"count={count} != {build_nodes.shape[0]} build nodes")
+    window = node_map.shape[0] if node_map is not None else count
     hist = None
     for page in stream:
         ro, nr = page.host.row_offset, page.host.n_rows
-        hp = build_histogram_nodes(
-            page.device, g[ro : ro + nr], h[ro : ro + nr], positions[page.index],
-            build_nodes, n_bins,
-        )
+        pos = positions[page.index]
+        if build_nodes is not None:
+            hp = build_histogram_nodes(
+                page.device, g[ro : ro + nr], h[ro : ro + nr], pos, build_nodes, n_bins
+            )
+        else:
+            level_pos = torch.where((pos >= offset) & (pos < offset + window), pos - offset, -1)
+            hp = build_histogram(
+                page.device, g[ro : ro + nr], h[ro : ro + nr], level_pos, count, n_bins,
+                node_map=node_map,
+            )
         # summed in place into the first page's histogram: one level
-        # histogram fewer on the device, the same f32 additions
+        # histogram fewer on the device, the same f32 additions; the page's
+        # own histogram is dropped before the next page's launch
         hist = hp if hist is None else hist.add_(hp)
+        del hp
     return hist
 
 

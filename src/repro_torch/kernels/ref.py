@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four CUDA kernels (and single-tree predict).
+"""Plain PyTorch versions of the five CUDA kernels (and single-tree predict).
 
 These are the semantics ground truth of `repro_torch.kernels`: each CUDA
 kernel must agree with the function here on the same inputs (partition and
@@ -37,19 +37,26 @@ def row_slots(positions: torch.Tensor, build_nodes: torch.Tensor) -> torch.Tenso
     return torch.where(hit.any(dim=1), slot, torch.full_like(slot, -1))
 
 
-def build_histogram_nodes(
-    bins: torch.Tensor,  # (n_rows, m) uint8 or int32 local bins
-    g: torch.Tensor,  # (n_rows,) f32
-    h: torch.Tensor,  # (n_rows,) f32
-    positions: torch.Tensor,  # (n_rows,) int32 global node ids; < 0 = inactive
-    build_nodes: torch.Tensor,  # (S,) int32 global build-node ids, all >= 0
-    n_bins: int,
-) -> torch.Tensor:
-    """``out[s, f, b] = (sum g, sum h)`` over rows at node ``build_nodes[s]``
-    whose bin of feature f is ``b != MISSING_BIN``; shape (S, m, n_bins, 2)."""
+def apply_node_map(positions: torch.Tensor, node_map: torch.Tensor) -> torch.Tensor:
+    """Remap level-local node ids through ``node_map`` (histogram subtraction).
+
+    ``node_map[j]`` is the build slot of level node ``j``, or -1 when j's
+    histogram is derived as ``parent - sibling``. Rows at derived nodes,
+    inactive rows and rows whose position falls outside the window come out
+    -1 and contribute to no bin."""
+    pos = positions.to(torch.int32)
+    if node_map.shape[0] == 0:
+        return torch.full_like(pos, -1)
+    in_window = (pos >= 0) & (pos < node_map.shape[0])
+    safe = pos.clamp(0, node_map.shape[0] - 1).to(torch.int64)
+    return torch.where(in_window, node_map.to(torch.int32)[safe], -1)
+
+
+def _scatter_histogram(bins, g, h, slot, n_slots: int, n_bins: int) -> torch.Tensor:
+    """``out[s, f, b] = (sum g, sum h)`` over rows with ``slot == s`` whose
+    bin of feature f is ``b != MISSING_BIN``; slot -1 matches nothing."""
     n_rows, m = bins.shape
-    n_slots = build_nodes.shape[0]
-    slot = row_slots(positions, build_nodes).to(torch.int64)
+    slot = slot.to(torch.int64)
     out = torch.zeros(n_slots * m * n_bins * 2, dtype=torch.float32, device=bins.device)
     feat = torch.arange(m, device=bins.device, dtype=torch.int64)[None, :] * n_bins
     for lo in range(0, n_rows, _HIST_ROW_CHUNK):
@@ -62,6 +69,40 @@ def build_histogram_nodes(
         out.index_add_(0, cell, g[rows].to(torch.float32))
         out.index_add_(0, cell + 1, h[rows].to(torch.float32))
     return out.reshape(n_slots, m, n_bins, 2)
+
+
+def build_histogram_nodes(
+    bins: torch.Tensor,  # (n_rows, m) uint8 or int32 local bins
+    g: torch.Tensor,  # (n_rows,) f32
+    h: torch.Tensor,  # (n_rows,) f32
+    positions: torch.Tensor,  # (n_rows,) int32 global node ids; < 0 = inactive
+    build_nodes: torch.Tensor,  # (S,) int32 global build-node ids, all >= 0
+    n_bins: int,
+) -> torch.Tensor:
+    """``out[s, f, b] = (sum g, sum h)`` over rows at node ``build_nodes[s]``
+    whose bin of feature f is ``b != MISSING_BIN``; shape (S, m, n_bins, 2)."""
+    slot = row_slots(positions, build_nodes)
+    return _scatter_histogram(bins, g, h, slot, build_nodes.shape[0], n_bins)
+
+
+def build_histogram(
+    bins: torch.Tensor,  # (n_rows, m) uint8 or int32 local bins
+    g: torch.Tensor,  # (n_rows,) f32
+    h: torch.Tensor,  # (n_rows,) f32
+    positions: torch.Tensor,  # (n_rows,) int32 level-local node index; < 0 = inactive
+    n_nodes: int,
+    n_bins: int,
+    node_map: torch.Tensor | None = None,  # (level_nodes,) int32 -> build slot or -1
+) -> torch.Tensor:
+    """Level-window histogram: ``out[k]`` sums the rows whose slot is ``k``,
+    the slot being ``node_map[pos]`` (or ``pos`` without a node_map); rows
+    with a slot outside ``[0, n_nodes)`` contribute to no bin. Shape
+    (n_nodes, m, n_bins, 2)."""
+    pos = positions.to(torch.int32)
+    if node_map is not None:
+        pos = apply_node_map(pos, node_map)
+    slot = torch.where((pos >= 0) & (pos < n_nodes), pos, -1)
+    return _scatter_histogram(bins, g, h, slot, n_nodes, n_bins)
 
 
 def bin_values(

@@ -8,9 +8,10 @@ on a GPU machine without JAX:
 
 Partition, forest and binning must equal the plain versions bit for bit
 (binning also equals the host `bin_batch`, for float32 and float64 input);
-the histogram is allclose(rtol=1e-5, atol=1e-5) (the plain version sums f32
-in another order) and equal to itself across runs (fixed-point
-accumulation).
+both histogram kernels are allclose(rtol=1e-5, atol=1e-5) to their plain
+versions (which sum f32 in another order) and equal to themselves across
+runs (fixed-point accumulation), and the level-window kernel (kernel 4)
+equals the node-set kernel (kernel 1) bit for bit on equivalent inputs.
 """
 import numpy as np
 import pytest
@@ -66,6 +67,80 @@ def test_histogram_kernel_empty_build_set_and_rows(dev):
     nodes = torch.tensor([0, 1], dtype=torch.int32, device=dev)
     out = k_hist.build_histogram_nodes(bins, empty_f, empty_f, empty_i, nodes, 8)
     assert out.shape == (2, 3, 8, 2) and not out.any()
+
+
+def _window_inputs(rng, n, m, n_bins, window, mapped, dtype):
+    """Level-local positions with -1 rows and rows past the window, and a
+    node_map building the smaller child of each pair (-1 = derived)."""
+    bins = _bins(rng, n, m, n_bins, dtype)
+    g = torch.from_numpy(rng.normal(size=n).astype(np.float32) * 50)
+    h = torch.from_numpy(rng.random(n).astype(np.float32))
+    pos = torch.from_numpy(rng.integers(-1, window + 5, n).astype(np.int32))
+    if not mapped:
+        return bins, g, h, pos, None, window
+    left = rng.random(window // 2) < 0.5
+    slots = np.arange(window // 2, dtype=np.int32)
+    node_map = np.stack([np.where(left, slots, -1), np.where(left, -1, slots)], 1)
+    return bins, g, h, pos, torch.from_numpy(node_map.reshape(-1)), window // 2
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
+@pytest.mark.parametrize("n,m,n_bins,window,mapped", [
+    (3000, 13, 64, 16, True), (3000, 13, 64, 16, False), (1, 1, 1, 2, True),
+    (5000, 7, 256, 600, True), (777, 40, 255, 4, False),
+    (4000, 2, 4, 30000, True),  # a node_map too long to stage in shared memory
+])
+def test_window_histogram_kernel_matches_plain(dev, dtype, n, m, n_bins, window, mapped):
+    rng = np.random.default_rng(n + m + window)
+    bins, g, h, pos, node_map, n_nodes = _window_inputs(rng, n, m, n_bins, window, mapped,
+                                                        dtype)
+    want = ref.build_histogram(bins, g, h, pos, n_nodes, n_bins, node_map)
+    cuda_map = None if node_map is None else node_map.to(dev)
+    before = k_hist.launches_window
+    got = k_hist.build_histogram(bins.to(dev), g.to(dev), h.to(dev), pos.to(dev), n_nodes,
+                                 n_bins, cuda_map)
+    assert k_hist.launches_window == before + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    again = k_hist.build_histogram(bins.to(dev), g.to(dev), h.to(dev), pos.to(dev), n_nodes,
+                                   n_bins, cuda_map)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("n,m,n_bins", [(20000, 30, 255), (999, 5, 16)])
+def test_window_histogram_kernel_equals_node_kernel_bitwise(dev, n, m, n_bins):
+    """Kernel 4 with a node_map gives the bits of kernel 1 given the
+    equivalent global build nodes: the same rows match, so the fixed-point
+    scale and every integer sum are the same."""
+    rng = np.random.default_rng(n)
+    offset, window = 127, 128
+    bins, g, h, level, node_map, n_build = _window_inputs(
+        rng, n, m, n_bins, window, True, np.uint8
+    )
+    glob = torch.where(level >= 0, level + offset, -1)
+    build_nodes = torch.zeros(n_build, dtype=torch.int32)
+    for j, s in enumerate(node_map.tolist()):
+        if s >= 0:
+            build_nodes[s] = offset + j
+    args = [t.to(dev) for t in (bins, g, h)]
+    got4 = k_hist.build_histogram(*args, level.to(dev), n_build, n_bins, node_map.to(dev))
+    got1 = k_hist.build_histogram_nodes(*args, glob.to(dev), build_nodes.to(dev), n_bins)
+    assert torch.equal(got4, got1)
+
+
+def test_window_histogram_kernel_empty_and_bad_arguments(dev):
+    bins = torch.zeros((4, 3), dtype=torch.uint8, device=dev)
+    ones = torch.ones(4, device=dev)
+    pos = torch.zeros(4, dtype=torch.int32, device=dev)
+    out = k_hist.build_histogram(bins, ones, ones, pos, 2, 8,
+                                 torch.zeros(0, dtype=torch.int32, device=dev))
+    assert out.shape == (2, 3, 8, 2) and not out.any()
+    with pytest.raises(TypeError, match="dtype"):
+        k_hist.build_histogram(bins, ones, ones, pos, 2, 8,
+                               torch.zeros(2, dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError, match="is on cpu"):
+        k_hist.build_histogram(bins, ones, ones, pos, 2, 8, torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        k_hist.build_histogram(bins.cpu(), ones.cpu(), ones.cpu(), pos.cpu(), 2, 8)
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.int32])

@@ -247,9 +247,27 @@ def test_legacy_manifest_cache_trains_the_same_trees(data, tmp_path):
 
 
 def test_node_map_histogram_needs_kernel_4():
-    with pytest.raises(NotImplementedError, match="kernel 4"):
-        ops.build_histogram_paged(iter(()), None, None, {}, 0, 2, 8,
-                                  node_map=torch.zeros(2, dtype=torch.int32))
+    """The node_map path of the paged histogram runs kernel 4 (here its
+    plain version) once per page: the page sum equals kernel 4 over the
+    concatenated pages with the same level-local window."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(4)
+    bins = torch.from_numpy(rng.integers(0, 8, (50, 3)).astype(np.uint8))
+    g = torch.from_numpy(rng.normal(size=50).astype(np.float32))
+    h = torch.from_numpy(rng.random(50).astype(np.float32))
+    pos = torch.from_numpy(rng.integers(-1, 9, 50).astype(np.int32))  # level [3, 7)
+    node_map = torch.tensor([-1, 0, 1, -1], dtype=torch.int32)
+    pages = [SimpleNamespace(index=i, device=bins[lo:hi],
+                             host=SimpleNamespace(row_offset=lo, n_rows=hi - lo))
+             for i, (lo, hi) in enumerate([(0, 20), (20, 50)])]
+    positions = {0: pos[:20], 1: pos[20:]}
+    got = ops.build_histogram_paged(iter(pages), g, h, positions, 3, 2, 8, node_map=node_map)
+    level = torch.where((pos >= 3) & (pos < 7), pos - 3, -1)
+    want = ref.build_histogram(bins, g, h, level, 2, 8, node_map=node_map)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
 def test_streaming_fit_stops_early_like_in_core(data):

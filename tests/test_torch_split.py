@@ -116,3 +116,22 @@ def test_leaf_weight_matches_reference():
         leaf_weight(torch.from_numpy(g), torch.from_numpy(h), 1.0).numpy(),
         np.asarray(j_leaf_weight(jnp.asarray(g), jnp.asarray(h), 1.0)),
     )
+
+
+@pytest.mark.parametrize("chunk_nodes", [1, 3, 8])
+def test_chunked_levels_equal_one_chunk(monkeypatch, chunk_nodes):
+    """Node chunks bound the temporaries and change no bit: a level split
+    into chunks of ``chunk_nodes`` nodes gives every field of the one-chunk
+    result exactly, and still the reference's splits."""
+    from repro_torch.core import split as split_mod
+
+    hist, node_g, node_h, bin_valid = _random_level(7, n_nodes=19, m=5, n_bins=12)
+    args = (torch.from_numpy(hist), torch.from_numpy(node_g), torch.from_numpy(node_h),
+            torch.from_numpy(bin_valid), SplitParams())
+    monkeypatch.setattr(split_mod, "CHUNK_BYTES", 1 << 40)
+    whole = evaluate_splits(*args)
+    monkeypatch.setattr(split_mod, "CHUNK_BYTES", chunk_nodes * 5 * 12 * 4)
+    chunked = evaluate_splits(*args)
+    for name in whole.__dataclass_fields__:
+        assert torch.equal(getattr(chunked, name), getattr(whole, name)), name
+    _assert_same(chunked, _both(hist, node_g, node_h, bin_valid)[1])
