@@ -24,6 +24,9 @@ Phases, each of which fails the run on error:
      32 MiB page's rows in float32, and the eval rows in float64, also
      against the host `bin_batch`), and times kernel, plain version and,
      where one exists, one PyTorch library call computing the same function;
+     the histogram also bit for bit against the fixed-point plain version,
+     and timed at each level of the in-core booster's first tree (its real
+     positions and build sets), beside the in-core seconds per tree;
   4. fits twice in core on a 200k-row subset and requires identical trees;
   5. requires ``predict_margin`` to equal the per-tree loop bit for bit;
   6. drives the out-of-core streaming path at the same width: the training
@@ -38,8 +41,10 @@ Phases, each of which fails the run on error:
      printed beside the byte model's streaming need, broken down by
      allocation site from the CUDA allocator's trace. Then one pass of the
      page stream holds the histogram and partition kernels against their
-     plain versions on every staged page, and the page-summed histogram
-     against the plain histogram of the concatenated pages;
+     plain versions on every staged page (the histogram also bit for bit
+     against the fixed-point one), the page-summed histogram against the
+     plain histogram of the concatenated pages and bit for bit against the
+     fixed-point pages summed with ``add_``;
   7. fits twice more by streaming (3 trees, a 200k-row subset, the page
      cache reopened through ``PagedDMatrix``, staging depth 2) and requires
      identical trees;
@@ -54,7 +59,8 @@ Phases, each of which fails the run on error:
      A's), and eval AUC within 1e-3 of the single-process streaming fit on
      the same rows and cuts. Then, on one staged page at level 7, the
      level-window kernel against its plain version and bit for bit against
-     the node-set kernel on the equivalent build nodes, and chunked split
+     the fixed-point plain version and the node-set kernel on the equivalent
+     build nodes, and chunked split
      evaluation of a 128-node level against one chunk.
 
 The streaming fit's device-memory peak above its start must stay within the
@@ -68,6 +74,7 @@ of JAX and exits non-zero without a CUDA device or outside a checkout.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -82,9 +89,16 @@ FP32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 FP64_OPS_PER_S = 34e12  # H100 SXM f64 outside the tensor cores
 PAGE_BYTES = 32 * 1024 * 1024
 AUC_TOLERANCE = 1e-3  # streaming vs in-core eval AUC after 4 trees
+SPIN_CYCLES = 40_000_000  # ~20 ms of the SM clock (up to 1.98 GHz)
 
 
-def _time_ms(fn, iters: int, warmup: int = 1) -> float:
+def _time_ms(fn, iters: int, warmup: int = 1, queued: bool = False) -> float:
+    """CUDA-event ms per call of ``fn`` called back to back: a call's wall
+    time as a path pays it, the host's time per call (Python, the wrapper,
+    the launch API) included where it exceeds the device's. With ``queued``
+    the launches first queue behind a device spin of ~20 ms, so that the
+    card runs them back to back and only its own time per call shows (the
+    ``device_ms`` of the kernels line)."""
     import torch
 
     for _ in range(warmup):
@@ -92,6 +106,8 @@ def _time_ms(fn, iters: int, warmup: int = 1) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -212,7 +228,7 @@ def main(argv=None) -> int:
         raise SystemExit(f"in-core path output wrong: shape {margin.shape}, auc {eval_auc}")
 
     # 3. kernels against their plain versions, at the paths' shapes ----------
-    results = kernel_checks(args.seed, dev, dm, booster, X, Xe)
+    results = kernel_checks(args.seed, dev, dm, booster, X, Xe, loop_s / n_trees)
     del dm
 
     # 4. determinism: two fits on a 200k-row subset grow identical trees ------
@@ -299,6 +315,15 @@ def main(argv=None) -> int:
             print(f"  {nbytes} B in {blocks} block(s) from {site}")
         print(f"  {sum(r[1] for r in small)} B in {sum(r[2] for r in small)} block(s) "
               f"from {len(small)} sites of under 1 MiB each")
+        # the histogram kernels' own buffers at the peak (the running page
+        # sum, the workspace, the big slots' accumulator) stay below one
+        # full-size (64, 500, 255, 2) int64 accumulator
+        full_int64 = 64 * 500 * 255 * 2 * 8
+        hist_bytes = sum(b for site, b, _ in peak_sites if site.startswith("kernels/histogram.py"))
+        print(f"streaming memory: the histogram wrappers hold {hist_bytes} B at the peak, "
+              f"against {full_int64} B for one full-size int64 accumulator")
+        if hist_bytes >= full_int64:
+            raise SystemExit("a full-size int64 histogram buffer is live at the streaming peak")
         print(
             f"streaming eval_auc after {n_stream} trees={stream_auc:.6f} in-core={core_auc:.6f} "
             f"|diff|={abs(stream_auc - core_auc):.6f}"
@@ -495,8 +520,10 @@ def elastic_phase(seed: int, dev, params: dict, path_kernels) -> tuple[dict, dic
             raise SystemExit(f"elastic AUC {elastic_auc} vs single-process {single_auc}")
 
         elastic_transport_probe(dev, dirs[0], rpc.worker_s["hist"] / rpc.calls["hist"])
-        page = torch.from_numpy(next(PagedDMatrix(dirs[0]).page_set().iter_pages())[1].bins)
-        page = page.to(dev)
+        host_pages = PagedDMatrix(dirs[0]).page_set().iter_pages()
+        page = torch.from_numpy(next(host_pages)[1].bins).to(dev)
+        for _ in host_pages:  # the prefetch thread's reads end before anything is timed
+            pass
         row = window_kernel_check(seed, dev, page)
         split_chunk_check(seed, dev, page, a.cuts)
     return path, row
@@ -587,40 +614,30 @@ def window_kernel_check(seed: int, dev, page) -> dict:
     err = (got - want).abs().max().item()
     if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
         raise SystemExit(f"level-window kernel disagrees with its plain version: max err {err}")
+    if not torch.equal(got, ref.build_histogram_fixed(page, g, h, pos, 64, n_bins, node_map)):
+        raise SystemExit("level-window kernel differs from the fixed-point plain version")
     if not torch.equal(got, k_hist.build_histogram_nodes(page, g, h, glob, build_nodes, n_bins)):
         raise SystemExit("level-window kernel differs from the node-set kernel on the "
                          "equivalent build nodes")
     if not torch.equal(got, k4()):
         raise SystemExit("level-window kernel is not deterministic run to run")
-    slot = ref.apply_node_map(pos, node_map).to(torch.int64)
-    valid = (page != 255) & (slot[:, None] >= 0)
-    cell = (slot[:, None] * (m * n_bins) + torch.arange(m, device=dev) * n_bins + page)[valid]
-    rows = torch.nonzero(valid)[:, 0]
-    gh = torch.stack([g[rows], h[rows]], dim=1)
-    del valid, rows
-    lib_out = torch.zeros(64 * m * n_bins, 2, device=dev)
-    lib_ms = _time_ms(lambda: lib_out.index_put_((cell,), gh, accumulate=True), 3)
-    n_matched = int((slot >= 0).sum())
-    del cell, gh, lib_out
-    # the bin row and g, h of each matched row, every position once, the
-    # node_map, and the output
-    wb, wb_by = _bound(
-        n_matched * (m * page.element_size() + 8) + 4 * n + 128 * 4 + 64 * m * n_bins * 8,
-        2.0 * n_matched * m,
+    wb, wb_by, lib_ms, n_matched = _hist_yardsticks(
+        page, g, h, ref.apply_node_map(pos, node_map).long(), 64, 128
     )
     row = dict(
         name="build_histogram", route="cuda",
         source="src/repro_torch/kernels/csrc/hist_window.cu",
         replaces="src/repro/kernels/histogram.py:158",
-        max_abs_err=err, ms=_time_ms(k4, 10), plain_ms=_time_ms(plain, 2),
-        bound_ms=wb, bound_by=wb_by, library_ms=lib_ms,
+        max_abs_err=err, ms=_time_ms(k4, 10), device_ms=_time_ms(k4, 10, queued=True),
+        plain_ms=_time_ms(plain, 2), bound_ms=wb, bound_by=wb_by, library_ms=lib_ms,
     )
     k_hist.launches, k_hist.launches_window = saved
     print(f"kernel build_histogram on a staged page ({n} x {m} uint8, level 7, 64 of 128 "
           f"nodes built, {n_matched} rows matched): max_abs_err={err:.3g} (rtol=atol=1e-5), "
-          f"== build_histogram_nodes on the equivalent build nodes (bitwise); "
-          f"ms={row['ms']:.4f} bound_ms={wb:.4f} ({wb_by}) plain_ms={row['plain_ms']:.4f} "
-          f"library_ms={lib_ms:.4f} (index_put_ accumulate)")
+          f"== the fixed-point plain version and build_histogram_nodes on the equivalent "
+          f"build nodes (bitwise); "
+          f"ms={row['ms']:.4f} device_ms={row['device_ms']:.4f} bound_ms={wb:.4f} ({wb_by}) "
+          f"plain_ms={row['plain_ms']:.4f} library_ms={lib_ms:.4f} (index_put_ accumulate)")
     return row
 
 
@@ -725,7 +742,7 @@ def page_kernel_checks(seed: int, dev, sdm, tree) -> None:
         positions[i] = pos
     part_args = (tree.feature, tree.split_bin, tree.default_left, tree.is_leaf)
     saved = k_hist.launches, k_part.launches
-    hist_err, pages, page_ms = 0.0, {}, None
+    hist_err, pages, fixed_sum = 0.0, {}, None
     for sp in sdm.page_set().stream(device=dev, staging_depth=2):
         ro, nr = sp.host.row_offset, sp.host.n_rows
         args = (sp.device, g[ro : ro + nr], h[ro : ro + nr], positions[sp.index], nodes, 255)
@@ -734,7 +751,13 @@ def page_kernel_checks(seed: int, dev, sdm, tree) -> None:
         if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
             raise SystemExit(f"histogram kernel disagrees with its plain version on "
                              f"streamed page {sp.index}: max err {err}")
+        fixed = ref.build_histogram_nodes_fixed(*args)
+        if not torch.equal(got, fixed):
+            raise SystemExit(f"histogram kernel differs from the fixed-point plain version on "
+                             f"streamed page {sp.index}")
+        fixed_sum = fixed if fixed_sum is None else fixed_sum.add_(fixed)
         hist_err = max(hist_err, err)
+        del got, want, fixed
         level_pos = torch.zeros(nr, dtype=torch.int32, device=dev)
         for _ in range(6):  # rows at level 6 of the first tree
             level_pos = ref.partition_rows(sp.device, level_pos, *part_args)
@@ -743,10 +766,17 @@ def page_kernel_checks(seed: int, dev, sdm, tree) -> None:
                            ref.partition_rows(sp.device, level_pos, *part_args)):
             raise SystemExit(f"partition kernel disagrees with its plain version on "
                              f"streamed page {sp.index}")
-        if page_ms is None:
-            page_ms = (_time_ms(lambda: k_hist.build_histogram_nodes(*args), 5),
-                       _time_ms(lambda: k_part.partition_rows(sp.device, level_pos, *part_args), 20))
+        if sp.index == 0:  # timed while the prefetch thread reads the next pages
+            first = args
+            hist_k = functools.partial(k_hist.build_histogram_nodes, *args)
+            part_k = functools.partial(k_part.partition_rows, sp.device, level_pos, *part_args)
+            t = dict(hist=_time_ms(hist_k, 10), hist_dev=_time_ms(hist_k, 10, queued=True),
+                     part=_time_ms(part_k, 20), part_dev=_time_ms(part_k, 20, queued=True))
         pages[sp.index] = sp.device
+    t["bound"], t["by"], t["lib"], _ = _hist_yardsticks(
+        *first[:3], ref.row_slots(first[3], nodes).long(), 64, 64
+    )
+    t["table"], t["search"] = _slot_lookup_ms(*first[:4], nodes)
     order = sorted(pages)
     paged = ops.build_histogram_paged(
         sdm.page_set().stream(device=dev, staging_depth=2), g, h, positions, 0, 64, 255,
@@ -760,17 +790,112 @@ def page_kernel_checks(seed: int, dev, sdm, tree) -> None:
     if not torch.allclose(paged, whole, rtol=1e-5, atol=1e-5):
         raise SystemExit(f"page-summed histogram disagrees with the plain histogram of "
                          f"the concatenated pages: max err {sum_err}")
+    if not torch.equal(paged, fixed_sum):
+        raise SystemExit("page-summed histogram (added into by the kernel) differs from the "
+                         "fixed-point plain pages summed with add_")
     k_hist.launches, k_part.launches = saved
     print(
         f"streaming kernels on {len(order)} staged pages ({pages[0].shape[0]} x "
         f"{pages[0].shape[1]} uint8 each): histogram max_abs_err={hist_err:.3g} "
-        f"(rtol=atol=1e-5), partition equal; page-summed histogram vs plain over the "
-        f"concatenated pages max_abs_err={sum_err:.3g}; at page 0 histogram "
-        f"{page_ms[0]:.4f} ms, partition {page_ms[1]:.4f} ms"
+        f"(rtol=atol=1e-5) and == the fixed-point plain version on every page (bitwise), "
+        f"partition equal; page-summed histogram == the fixed-point pages summed with add_ "
+        f"(bitwise), vs plain over the concatenated pages max_abs_err={sum_err:.3g}; at page "
+        f"0 histogram ms={t['hist']:.4f} device_ms={t['hist_dev']:.4f} bound_ms={t['bound']:.4f} "
+        f"({t['by']}) library_ms={t['lib']:.4f} (index_put_ accumulate), partition "
+        f"ms={t['part']:.4f} device_ms={t['part_dev']:.4f}; histogram slot lookup by id table "
+        f"device_ms={t['table']:.4f}, by search (one far empty node added, same bits) "
+        f"device_ms={t['search']:.4f}"
     )
 
 
-def kernel_checks(seed: int, dev, dm, booster, X, Xe) -> list[dict]:
+def _hist_yardsticks(bins, g, h, slot, n_slots: int, table_len: int, n_bins: int = 255):
+    """(bound ms, bound_by, index_put_ ms, matched rows) of a histogram over
+    the rows whose slot (int64) is >= 0: the bound counts the bin row and g,
+    h of each matched row, every position, the node table or map, and the
+    output; the library call scatters the same cells with index_put_."""
+    import torch
+
+    n, m = bins.shape
+    valid = (bins != 255) & (slot[:, None] >= 0)
+    cell = (slot[:, None] * (m * n_bins) + torch.arange(m, device=bins.device) * n_bins
+            + bins)[valid]
+    rows = torch.nonzero(valid)[:, 0]
+    gh = torch.stack([g[rows], h[rows]], dim=1)
+    del valid, rows
+    lib_out = torch.zeros(n_slots * m * n_bins, 2, device=bins.device)
+    lib_ms = _time_ms(lambda: lib_out.index_put_((cell,), gh, accumulate=True), 3)
+    del cell, gh, lib_out
+    n_matched = int((slot >= 0).sum())
+    bound, by = _bound(
+        n_matched * (m * bins.element_size() + 8) + 4 * n + 4 * table_len
+        + n_slots * m * n_bins * 8,
+        2.0 * n_matched * m,
+    )
+    return bound, by, lib_ms, n_matched
+
+
+def _slot_lookup_ms(bins, g, h, pos, nodes, n_bins: int = 255) -> tuple[float, float]:
+    """Kernel 1's device ms with its slot lookup by id table (the build
+    nodes span fewer than 4,096 ids) and by search of the build-node list,
+    forced by one more build node far from the rest that no row matches:
+    the search's first slots must give the table's bits, its last none."""
+    import torch
+
+    from repro_torch.kernels import histogram as k_hist
+
+    far = torch.cat([nodes, nodes.new_tensor([1 << 30])])
+    table = functools.partial(k_hist.build_histogram_nodes, bins, g, h, pos, nodes, n_bins)
+    search = functools.partial(k_hist.build_histogram_nodes, bins, g, h, pos, far, n_bins)
+    got, wide = table(), search()
+    if not torch.equal(wide[:-1], got) or wide[-1].any():
+        raise SystemExit("kernel 1's search of the build nodes differs from its id table")
+    return _time_ms(table, 10, queued=True), _time_ms(search, 10, queued=True)
+
+
+def level_times(bins, g, h, tree, per_tree_s: float) -> None:
+    """Kernel 1 at each level of the in-core booster's first tree, on all
+    training rows: the rows' positions from repeated partitions by the
+    tree, and the build set the histogram store plans (the smaller child of
+    each split pair, the root at level 0). Prints S, matched rows, ms and
+    the bound per level, and their sum beside the in-core seconds per tree."""
+    import torch
+
+    from repro_torch.core.histcache import level_row_counts, plan_level
+    from repro_torch.kernels import histogram as k_hist
+    from repro_torch.kernels import ref
+
+    n, m = bins.shape
+    dev = bins.device
+    part_args = (tree.feature, tree.split_bin, tree.default_left, tree.is_leaf)
+    pos = torch.zeros(n, dtype=torch.int32, device=dev)
+    total_ms = total_dev = total_bound = 0.0
+    for depth in range(tree.max_depth):
+        count = 1 << depth
+        if depth == 0:
+            nodes = torch.zeros(1, dtype=torch.int32, device=dev)
+        else:
+            _, build_left = plan_level(count, level_row_counts(pos, count - 1, count))
+            nodes = (count - 1 + 2 * torch.arange(count // 2, dtype=torch.int32, device=dev)
+                     + (~build_left).to(torch.int32))
+        matched = int(torch.isin(pos, nodes).sum())
+        def k1():
+            return k_hist.build_histogram_nodes(bins, g, h, pos, nodes, 255)
+
+        ms, dev_ms = _time_ms(k1, 5), _time_ms(k1, 5, queued=True)
+        s = nodes.shape[0]
+        bound, by = _bound(matched * (m + 8) + 4 * n + 4 * s + s * m * 255 * 8, 2.0 * matched * m)
+        total_ms += ms
+        total_dev += dev_ms
+        total_bound += bound
+        print(f"  kernel build_histogram_nodes, tree 0 level {depth}: S={s} matched_rows={matched} "
+              f"ms={ms:.4f} device_ms={dev_ms:.4f} bound_ms={bound:.4f} ({by})")
+        pos = ref.partition_rows(bins, pos, *part_args)
+    print(f"  kernel build_histogram_nodes, tree 0, all levels: ms={total_ms:.4f} "
+          f"device_ms={total_dev:.4f} bound_ms={total_bound:.4f} against the in-core "
+          f"per_tree={per_tree_s * 1e3:.4f} ms")
+
+
+def kernel_checks(seed: int, dev, dm, booster, X, Xe, per_tree_s: float) -> list[dict]:
     """Phase 3: each kernel against its plain version at the paths' shapes,
     timed beside its bound and a library call; restores the launch counts."""
     import numpy as np
@@ -810,34 +935,32 @@ def kernel_checks(seed: int, dev, dm, booster, X, Xe) -> list[dict]:
     err = (got - want).abs().max().item()
     if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
         raise SystemExit(f"histogram kernel disagrees with its plain version: max err {err}")
+    if not torch.equal(got, ref.build_histogram_nodes_fixed(bins, g, h, pos, nodes, n_bins)):
+        raise SystemExit("histogram kernel differs from the fixed-point plain version")
     if not torch.equal(got, hist_k()):
         raise SystemExit("histogram kernel is not deterministic run to run")
-    slot = ref.row_slots(pos, nodes).to(torch.int64)
-    valid = (bins != 255) & (slot[:, None] >= 0)
-    cell = (slot[:, None] * (m * n_bins) + torch.arange(m, device=dev) * n_bins + bins)[valid]
-    rows = torch.nonzero(valid)[:, 0]
-    gh = torch.stack([g[rows], h[rows]], dim=1)
-    del valid, rows
-    lib_out = torch.zeros(64 * m * n_bins, 2, device=dev)
-    lib_ms = _time_ms(lambda: lib_out.index_put_((cell,), gh, accumulate=True), 3)
-    n_matched = int((slot >= 0).sum())
-    del cell, gh, lib_out
-    # only matched rows need their bins (contiguous m-byte rows) and g, h;
-    # every row's position is read once to match it
-    hb, hb_by = _bound(
-        n_matched * (m * bins.element_size() + 8) + 4 * n + 64 * 4 + 64 * m * n_bins * 8,
-        2.0 * n_matched * m,
+    del got, want
+    hb, hb_by, lib_ms, n_matched = _hist_yardsticks(
+        bins, g, h, ref.row_slots(pos, nodes).long(), 64, 64
     )
     results.append(dict(
         name="build_histogram_nodes", route="cuda",
         source="src/repro_torch/kernels/csrc/histogram.cu",
         replaces="src/repro/kernels/histogram.py:214",
-        max_abs_err=err, ms=_time_ms(hist_k, 5), plain_ms=_time_ms(hist_p, 2),
-        bound_ms=hb, bound_by=hb_by, library_ms=lib_ms,
+        max_abs_err=err, ms=_time_ms(hist_k, 5), device_ms=_time_ms(hist_k, 5, queued=True),
+        plain_ms=_time_ms(hist_p, 2), bound_ms=hb, bound_by=hb_by, library_ms=lib_ms,
     ))
+    print(f"kernel build_histogram_nodes ({n} x {m} uint8, {n_bins} bins, 64 of 128 nodes "
+          f"built, {n_matched} rows matched): == the fixed-point plain version (bitwise); "
+          f"ms={results[-1]['ms']:.4f} device_ms={results[-1]['device_ms']:.4f} "
+          f"bound_ms={hb:.4f} ({hb_by}) library_ms={lib_ms:.4f} (index_put_ accumulate)")
+    lookup = _slot_lookup_ms(bins, g, h, pos, nodes)
+    print(f"  slot lookup at this shape: id table device_ms={lookup[0]:.4f}, search of the "
+          f"build nodes (one far empty node added, same bits) device_ms={lookup[1]:.4f}")
+    t0_tree = booster.trees[0]
+    level_times(bins, g, h, t0_tree, per_tree_s)
     k_hist.launches = saved
 
-    t0_tree = booster.trees[0]
     level_pos = torch.zeros(n, dtype=torch.int32, device=dev)
     part_args = (t0_tree.feature, t0_tree.split_bin, t0_tree.default_left, t0_tree.is_leaf)
     for _ in range(6):  # rows at level 6 of the first tree: the 7th partition's input
@@ -856,11 +979,13 @@ def kernel_checks(seed: int, dev, dm, booster, X, Xe) -> list[dict]:
         replaces="src/repro/kernels/partition.py:82",
         max_abs_err=0.0,
         ms=_time_ms(lambda: k_part.partition_rows(bins, level_pos, *part_args), 20),
+        device_ms=_time_ms(lambda: k_part.partition_rows(bins, level_pos, *part_args), 20,
+                           queued=True),
         plain_ms=_time_ms(lambda: ref.partition_rows(bins, level_pos, *part_args), 5),
         bound_ms=pb, bound_by=pb_by, library_ms=None,
     ))
     k_part.launches = saved
-    del bins, g, h, pos, slot, level_pos
+    del bins, g, h, pos, level_pos
 
     forest = booster.packed_forest()
     scaled = torch.tensor(forest.learning_rate, dtype=torch.float32, device=dev) * forest.leaf_value
@@ -892,6 +1017,8 @@ def kernel_checks(seed: int, dev, dm, booster, X, Xe) -> list[dict]:
         replaces="src/repro/kernels/forest.py:129",
         max_abs_err=0.0,
         ms=_time_ms(lambda: k_forest.predict_forest(eval_bins, *f_args, m_in), 20),
+        device_ms=_time_ms(lambda: k_forest.predict_forest(eval_bins, *f_args, m_in), 20,
+                           queued=True),
         plain_ms=_time_ms(lambda: ref.predict_forest_bins(eval_bins, *f_args, m_in), 3),
         bound_ms=fb, bound_by=fb_by, library_ms=None,
     ))
@@ -929,6 +1056,7 @@ def kernel_checks(seed: int, dev, dm, booster, X, Xe) -> list[dict]:
         )
         bin_rows[dtype.__name__] = dict(
             rows=rows, ms=_time_ms(lambda: k_bin.bin_values(x, edges, nbf), 20),
+            device_ms=_time_ms(lambda: k_bin.bin_values(x, edges, nbf), 20, queued=True),
             plain_ms=_time_ms(lambda: ref.bin_values(x, edges, nbf), 2),
             library_ms=_time_ms(lambda: torch.searchsorted(lib_edges, xt, side="left"), 5),
             bound_ms=bb, bound_by=bb_by, host_numpy_s=host_s,
@@ -944,13 +1072,13 @@ def kernel_checks(seed: int, dev, dm, booster, X, Xe) -> list[dict]:
         name="bin_values", route="cuda",
         source="src/repro_torch/kernels/csrc/ellpack_bin.cu",
         replaces="src/repro/kernels/ellpack_bin.py:60",
-        max_abs_err=0.0, ms=f32["ms"], plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
+        max_abs_err=0.0, ms=f32["ms"], device_ms=f32["device_ms"], plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
         bound_by=f32["bound_by"], library_ms=f32["library_ms"],
     ))
     for r in results:
         print(
             f"kernel {r['name']}: max_abs_err={r['max_abs_err']:.3g} ms={r['ms']:.4f} "
-            f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+            f"device_ms={r['device_ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
             f"library_ms={r['library_ms']}"
         )
     return results

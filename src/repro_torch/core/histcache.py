@@ -112,13 +112,13 @@ def plan_level(count: int, level_counts: Tensor) -> tuple[Tensor, Tensor]:
 def expand_level(parent_hist: Tensor, built: Tensor, build_left: Tensor) -> Tensor:
     """Full level histogram from the compact build half: the built child keeps
     its histogram, the sibling is ``parent - built``."""
-    derived = parent_hist - built
     mask = build_left.reshape((-1,) + (1,) * (built.dim() - 1))
-    # both children written straight into the level histogram: no left and
-    # right temporaries beside it
+    # both children written straight into the level histogram, the derived
+    # one computed in place there: no temporary beside it
     full = torch.empty((built.shape[0], 2) + built.shape[1:], dtype=built.dtype, device=built.device)
-    torch.where(mask, built, derived, out=full[:, 0])
-    torch.where(mask, derived, built, out=full[:, 1])
+    torch.sub(parent_hist, built, out=full[:, 1])
+    torch.where(mask, built, full[:, 1], out=full[:, 0])
+    torch.where(mask, full[:, 1], built, out=full[:, 1])
     return full.reshape((2 * built.shape[0],) + built.shape[1:])
 
 

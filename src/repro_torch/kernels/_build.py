@@ -42,10 +42,10 @@ NVCC_FLAGS = (
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 # argtypes of each library's C entry point (see the extern "C" functions)
 SIGNATURES = {
-    "histogram": ("hist_nodes_launch", [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P,
-                                        _P, _P, _I, _I, _I, _I, _P]),
+    "histogram": ("hist_nodes_launch", [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
+                                        _I, _P, _I, _P]),
     "hist_window": ("hist_window_launch", [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
-                                           _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+                                           _P, _P, _P, _I, _P, _I, _P]),
     "partition": ("partition_launch", [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P]),
     "forest": ("forest_launch", [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                                  _P]),

@@ -53,7 +53,10 @@ def build_histogram_paged(
     ``stream`` yields `StreamedPage`s whose host view has ``row_offset`` /
     ``n_rows`` and whose device tensor is the staged uint8 page;
     ``positions[page.index]`` holds that page's global tree positions. One
-    kernel launch per page; pages are summed in f32 in stream order.
+    kernel launch per page; pages are summed in f32 in stream order. On the
+    card each page's kernel adds its histogram into the running sum from
+    the second page on (the page's own histogram is never allocated); on the
+    CPU the page's histogram is summed with ``add_``, the same f32 additions.
 
     With ``build_nodes`` (the fused path) each page's raw positions go
     straight to `build_histogram_nodes`; ``offset`` is unused then and
@@ -70,19 +73,24 @@ def build_histogram_paged(
     for page in stream:
         ro, nr = page.host.row_offset, page.host.n_rows
         pos = positions[page.index]
+        args = (page.device, g[ro : ro + nr], h[ro : ro + nr])
         if build_nodes is not None:
-            hp = build_histogram_nodes(
-                page.device, g[ro : ro + nr], h[ro : ro + nr], pos, build_nodes, n_bins
-            )
+            if page.device.is_cuda:
+                hist = _histogram.build_histogram_nodes(
+                    *args, pos, build_nodes, n_bins, add_into=hist
+                )
+                continue
+            hp = _ref.build_histogram_nodes(*args, pos, build_nodes, n_bins)
         else:
             level_pos = torch.where((pos >= offset) & (pos < offset + window), pos - offset, -1)
-            hp = build_histogram(
-                page.device, g[ro : ro + nr], h[ro : ro + nr], level_pos, count, n_bins,
-                node_map=node_map,
-            )
+            if page.device.is_cuda:
+                hist = _histogram.build_histogram(
+                    *args, level_pos, count, n_bins, node_map=node_map, add_into=hist
+                )
+                continue
+            hp = _ref.build_histogram(*args, level_pos, count, n_bins, node_map)
         # summed in place into the first page's histogram: one level
-        # histogram fewer on the device, the same f32 additions; the page's
-        # own histogram is dropped before the next page's launch
+        # histogram fewer, the page's own dropped before the next page
         hist = hp if hist is None else hist.add_(hp)
         del hp
     return hist

@@ -2,9 +2,11 @@
 
 These are the semantics ground truth of `repro_torch.kernels`: each CUDA
 kernel must agree with the function here on the same inputs (partition and
-forest and binning bit for bit, histograms to f32 summation order). They are the path a
-CPU tensor takes through `kernels.ops`, and the yardstick `chip_smoke.py`
-holds each kernel against on the card. Counterparts of `repro.kernels.ref`.
+forest and binning bit for bit; the histogram kernels bit for bit with the
+``*_fixed`` versions, which sum in the kernels' 64-bit fixed point, and to
+f32 summation order with the f32 ones). The f32 versions are the path a CPU
+tensor takes through `kernels.ops`; all are the yardsticks `chip_smoke.py`
+holds the kernels against on the card. Counterparts of `repro.kernels.ref`.
 
 Conventions shared with the kernels:
   * bins are ``(n_rows, m)`` uint8 or int32; ``MISSING_BIN`` (255) is missing
@@ -52,23 +54,62 @@ def apply_node_map(positions: torch.Tensor, node_map: torch.Tensor) -> torch.Ten
     return torch.where(in_window, node_map.to(torch.int32)[safe], -1)
 
 
-def _scatter_histogram(bins, g, h, slot, n_slots: int, n_bins: int) -> torch.Tensor:
-    """``out[s, f, b] = (sum g, sum h)`` over rows with ``slot == s`` whose
-    bin of feature f is ``b != MISSING_BIN``; slot -1 matches nothing."""
+def _hist_cells(bins, slot, n_bins: int):
+    """Per chunk of `_HIST_ROW_CHUNK` rows: (g cell, row) of every (row,
+    feature) whose slot is >= 0 and whose bin is a real one, the cell being
+    ``((slot * m + f) * n_bins + bin) * 2`` in the flat (S, m, n_bins, 2)
+    histogram (h is the next cell)."""
     n_rows, m = bins.shape
     slot = slot.to(torch.int64)
-    out = torch.zeros(n_slots * m * n_bins * 2, dtype=torch.float32, device=bins.device)
     feat = torch.arange(m, device=bins.device, dtype=torch.int64)[None, :] * n_bins
     for lo in range(0, n_rows, _HIST_ROW_CHUNK):
         hi = min(lo + _HIST_ROW_CHUNK, n_rows)
         b = bins[lo:hi].to(torch.int64)
         s = slot[lo:hi, None]
-        valid = (b != MISSING_BIN) & (b < n_bins) & (s >= 0)
-        cell = (s * (m * n_bins) + feat + b)[valid] * 2
-        rows = torch.nonzero(valid)[:, 0] + lo
+        valid = (b != MISSING_BIN) & (b >= 0) & (b < n_bins) & (s >= 0)
+        yield (s * (m * n_bins) + feat + b)[valid] * 2, torch.nonzero(valid)[:, 0] + lo
+
+
+def _scatter_histogram(bins, g, h, slot, n_slots: int, n_bins: int) -> torch.Tensor:
+    """``out[s, f, b] = (sum g, sum h)`` over rows with ``slot == s`` whose
+    bin of feature f is ``b != MISSING_BIN``; slot -1 matches nothing."""
+    m = bins.shape[1]
+    out = torch.zeros(n_slots * m * n_bins * 2, dtype=torch.float32, device=bins.device)
+    for cell, rows in _hist_cells(bins, slot, n_bins):
         out.index_add_(0, cell, g[rows].to(torch.float32))
         out.index_add_(0, cell + 1, h[rows].to(torch.float32))
     return out.reshape(n_slots, m, n_bins, 2)
+
+
+def _fixed_scale(v: torch.Tensor, matched: torch.Tensor, lg_rows: int) -> float:
+    """Power-of-two fixed-point scale of ``v`` over the matched rows:
+    ``2 ** (62 - lg_rows - e)`` with ``max|v| < 2 ** e`` (``e = 0`` when the
+    maximum is 0), so no sum of up to ``2 ** lg_rows`` rounded terms leaves
+    int64."""
+    mx = v[matched].abs().max() if bool(matched.any()) else v.new_zeros(())
+    e = int(torch.frexp(mx.to(torch.float32)).exponent)
+    return 2.0 ** (62 - lg_rows - e)
+
+
+def _scatter_histogram_fixed(bins, g, h, slot, n_slots: int, n_bins: int) -> torch.Tensor:
+    """`_scatter_histogram` in the CUDA kernels' arithmetic, bit for bit:
+    g and h are scaled by `_fixed_scale` (``lg_rows`` from all ``n_rows``),
+    rounded half to even to int64 (``__double2ll_rn``), summed exactly in
+    int64, and each sum converted once, ``float(double(acc) / scale)``.
+    Integer sums do not depend on the order of rows."""
+    n_rows, m = bins.shape
+    lg_rows = max(0, (n_rows - 1).bit_length())
+    matched = slot >= 0
+    scales = [_fixed_scale(v, matched, lg_rows) for v in (g, h)]
+    qg, qh = [(v.to(torch.float64) * s).round().to(torch.int64) for v, s in zip((g, h), scales)]
+    acc = torch.zeros(n_slots * m * n_bins * 2, dtype=torch.int64, device=bins.device)
+    for cell, rows in _hist_cells(bins, slot, n_bins):
+        acc.index_add_(0, cell, qg[rows])
+        acc.index_add_(0, cell + 1, qh[rows])
+    scale = torch.tensor(scales, dtype=torch.float64, device=bins.device)
+    return (acc.reshape(-1, 2).to(torch.float64) / scale).to(torch.float32).reshape(
+        n_slots, m, n_bins, 2
+    )
 
 
 def build_histogram_nodes(
@@ -85,6 +126,13 @@ def build_histogram_nodes(
     return _scatter_histogram(bins, g, h, slot, build_nodes.shape[0], n_bins)
 
 
+def build_histogram_nodes_fixed(bins, g, h, positions, build_nodes, n_bins: int) -> torch.Tensor:
+    """`build_histogram_nodes` with kernel 1's fixed-point sums: the same
+    bits as the CUDA kernel on the same inputs."""
+    slot = row_slots(positions, build_nodes)
+    return _scatter_histogram_fixed(bins, g, h, slot, build_nodes.shape[0], n_bins)
+
+
 def build_histogram(
     bins: torch.Tensor,  # (n_rows, m) uint8 or int32 local bins
     g: torch.Tensor,  # (n_rows,) f32
@@ -98,11 +146,24 @@ def build_histogram(
     the slot being ``node_map[pos]`` (or ``pos`` without a node_map); rows
     with a slot outside ``[0, n_nodes)`` contribute to no bin. Shape
     (n_nodes, m, n_bins, 2)."""
+    return _scatter_histogram(bins, g, h, _window_slots(positions, n_nodes, node_map), n_nodes,
+                              n_bins)
+
+
+def build_histogram_fixed(bins, g, h, positions, n_nodes: int, n_bins: int, node_map=None):
+    """`build_histogram` with kernel 4's fixed-point sums: the same bits as
+    the CUDA kernel on the same inputs."""
+    return _scatter_histogram_fixed(bins, g, h, _window_slots(positions, n_nodes, node_map),
+                                    n_nodes, n_bins)
+
+
+def _window_slots(positions, n_nodes: int, node_map) -> torch.Tensor:
+    """A row's slot in a level window: ``node_map[pos]`` (or ``pos``), -1
+    outside ``[0, n_nodes)``."""
     pos = positions.to(torch.int32)
     if node_map is not None:
         pos = apply_node_map(pos, node_map)
-    slot = torch.where((pos >= 0) & (pos < n_nodes), pos, -1)
-    return _scatter_histogram(bins, g, h, slot, n_nodes, n_bins)
+    return torch.where((pos >= 0) & (pos < n_nodes), pos, -1)
 
 
 def bin_values(

@@ -8,10 +8,12 @@ on a GPU machine without JAX:
 
 Partition, forest and binning must equal the plain versions bit for bit
 (binning also equals the host `bin_batch`, for float32 and float64 input);
-both histogram kernels are allclose(rtol=1e-5, atol=1e-5) to their plain
-versions (which sum f32 in another order) and equal to themselves across
-runs (fixed-point accumulation), and the level-window kernel (kernel 4)
-equals the node-set kernel (kernel 1) bit for bit on equivalent inputs.
+both histogram kernels equal their fixed-point plain versions
+(`ref.build_histogram_nodes_fixed`, `ref.build_histogram_fixed`) bit for bit,
+are allclose(rtol=1e-5, atol=1e-5) to their f32 plain versions (which sum
+f32 in another order) at small sizes, and equal themselves across runs; the
+level-window kernel (kernel 4) equals the node-set kernel (kernel 1) bit for
+bit on equivalent inputs, and ``add_into`` equals ``add_`` bit for bit.
 """
 import numpy as np
 import pytest
@@ -56,8 +58,25 @@ def test_histogram_kernel_matches_plain(dev, dtype, n, m, n_bins, n_nodes, n_bui
     want = ref.build_histogram_nodes(*args, n_bins)
     got = k_hist.build_histogram_nodes(*(a.to(dev) for a in args), n_bins)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got.cpu(), ref.build_histogram_nodes_fixed(*args, n_bins))
     again = k_hist.build_histogram_nodes(*(a.to(dev) for a in args), n_bins)
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("nodes", [[5, 3, 5, 7], [5, 3, 5, 9000]])
+def test_histogram_kernel_node_lookup_table_and_search(dev, nodes):
+    """Build nodes spanning fewer ids than the kernel's slot table, and more
+    (searched); a repeated node's rows go to its first slot only."""
+    rng = np.random.default_rng(7)
+    n, m = 4000, 11
+    bins = _bins(rng, n, m, 64, np.uint8).to(dev)
+    g = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(dev)
+    h = torch.from_numpy(rng.random(n).astype(np.float32)).to(dev)
+    pos = torch.from_numpy(rng.choice([-1, 3, 5, 6, 7, 9000], n).astype(np.int32)).to(dev)
+    build = torch.tensor(nodes, dtype=torch.int32, device=dev)
+    got = k_hist.build_histogram_nodes(bins, g, h, pos, build, 64)
+    assert torch.equal(got, ref.build_histogram_nodes_fixed(bins, g, h, pos, build, 64))
+    assert got[0].any() and not got[2].any()
 
 
 def test_histogram_kernel_empty_build_set_and_rows(dev):
@@ -101,6 +120,8 @@ def test_window_histogram_kernel_matches_plain(dev, dtype, n, m, n_bins, window,
                                  n_bins, cuda_map)
     assert k_hist.launches_window == before + 1
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got.cpu(), ref.build_histogram_fixed(bins, g, h, pos, n_nodes, n_bins,
+                                                            node_map))
     again = k_hist.build_histogram(bins.to(dev), g.to(dev), h.to(dev), pos.to(dev), n_nodes,
                                    n_bins, cuda_map)
     assert torch.equal(got, again)
@@ -125,6 +146,130 @@ def test_window_histogram_kernel_equals_node_kernel_bitwise(dev, n, m, n_bins):
     got4 = k_hist.build_histogram(*args, level.to(dev), n_build, n_bins, node_map.to(dev))
     got1 = k_hist.build_histogram_nodes(*args, glob.to(dev), build_nodes.to(dev), n_bins)
     assert torch.equal(got4, got1)
+
+
+def _level7(dev, n, seed):
+    """Level 7 of a depth-8 tree at the paper's width, as `chip_smoke.py`
+    gives it to the kernels: uint8 bins of 255 bins with 5% missing, rows
+    spread over the 128 level nodes (global ids 127..254), 10% inactive, and
+    the smaller child of each of the 64 pairs built."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bins = torch.randint(0, 255, (n, 500), generator=gen, device=dev, dtype=torch.uint8)
+    bins[torch.rand((n, 500), generator=gen, device=dev) < 0.05] = 255
+    g = torch.randn(n, generator=gen, device=dev)
+    h = torch.rand(n, generator=gen, device=dev)
+    level = torch.randint(0, 128, (n,), generator=gen, device=dev, dtype=torch.int32)
+    level[torch.rand(n, generator=gen, device=dev) < 0.1] = -1
+    left = torch.randint(0, 2, (64,), generator=gen, device=dev).bool()
+    return bins, g, h, level, left
+
+
+@pytest.mark.parametrize("n,kernel", [
+    (1_000_000, "nodes"),  # phase 3: all training rows
+    (67_108, "nodes"),  # phase 6: one staged 32 MiB page
+    (67_108, "window"),  # phase 8: kernel 4 on one page, 5% of rows past the window
+])
+def test_histogram_kernels_equal_fixed_point_plain_at_path_shapes(dev, n, kernel):
+    bins, g, h, level, left = _level7(dev, n, n)
+    slots = torch.arange(64, device=dev, dtype=torch.int32)
+    if kernel == "nodes":
+        pos = torch.where(level >= 0, level + 127, -1)
+        nodes = 127 + 2 * slots + (~left).to(torch.int32)
+        got = k_hist.build_histogram_nodes(bins, g, h, pos, nodes, 255)
+        want = ref.build_histogram_nodes_fixed(bins, g, h, pos, nodes, 255)
+    else:
+        level[torch.rand(n, device=dev) < 0.05] += 128
+        minus = torch.full_like(slots, -1)
+        node_map = torch.stack([torch.where(left, slots, minus), torch.where(left, minus, slots)],
+                               dim=1).reshape(128)
+        got = k_hist.build_histogram(bins, g, h, level, 64, 255, node_map)
+        want = ref.build_histogram_fixed(bins, g, h, level, 64, 255, node_map)
+    assert torch.equal(got, want)
+
+
+def _regime(dev, case):
+    """(bins, g, h, positions, build_nodes) of one work-list regime of the
+    bucketed scatter; C is the most rows one block takes."""
+    c = k_hist.MIN_CHUNK_ROWS
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    n, m, n_nodes = {
+        "one_slot_all_rows": (3 * c + 17, 37, 1),  # every row in one slot: 4 chunks
+        "many_small_slots": (40_000, 9, 12_288),  # 12,288 slots of a few rows
+        "one_slot_1m_rows": (1_000_000, 500, 1),  # S = 1 at the in-core width
+        "chunk_boundary": (2 * c + 1 + 5000, 21, 4),  # slots of exactly C and C + 1 rows
+    }[case]
+    bins = torch.randint(0, 255, (n, m), generator=gen, device=dev, dtype=torch.uint8)
+    bins[torch.rand((n, m), generator=gen, device=dev) < 0.05] = 255
+    g = torch.randn(n, generator=gen, device=dev) * 7
+    h = torch.rand(n, generator=gen, device=dev)
+    if case == "chunk_boundary":
+        pos = torch.cat([torch.full((c,), 10), torch.full((c + 1,), 11),
+                         torch.randint(12, 14, (5000,), generator=gen, device=dev).cpu()])
+        pos = pos[torch.randperm(n)].to(torch.int32).to(dev)
+    else:
+        pos = torch.randint(0, n_nodes, (n,), generator=gen, device=dev, dtype=torch.int32)
+        if case != "one_slot_all_rows":
+            pos[torch.rand(n, generator=gen, device=dev) < 0.1] = -1
+    nodes = torch.arange(n_nodes, dtype=torch.int32, device=dev) + (10 if n_nodes == 4 else 0)
+    return bins, g, h, pos, nodes
+
+
+@pytest.mark.parametrize("case", [
+    "one_slot_all_rows", "many_small_slots", "one_slot_1m_rows", "chunk_boundary",
+])
+def test_histogram_kernels_equal_fixed_point_plain_in_every_regime(dev, case):
+    """Slots of one chunk (one block owns each cell) and of several (global
+    int64 atomics into the compact accumulator) give the plain version's bits;
+    kernel 4 given the same rows as level-local slots gives kernel 1's."""
+    bins, g, h, pos, nodes = _regime(dev, case)
+    got = k_hist.build_histogram_nodes(bins, g, h, pos, nodes, 255)
+    assert torch.equal(got, ref.build_histogram_nodes_fixed(bins, g, h, pos, nodes, 255))
+    if case == "chunk_boundary":
+        counts = torch.bincount(pos[pos >= 0].long(), minlength=14)[10:].tolist()
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = k_hist.plan_launch(*bins.shape, 4, 255, 1, n_sm)
+        c = plan.chunk_rows(sum(counts))
+        assert counts[:2] == [c, c + 1]
+    # the exact sums rounded once to f32: within f32 rounding of f64 sums (an
+    # f32 running sum over tens of thousands of rows is not, so the f32 plain
+    # version is no yardstick at these sizes)
+    exact = torch.zeros(got.numel(), dtype=torch.float64, device=dev)
+    for cell, rows in ref._hist_cells(bins, ref.row_slots(pos, nodes), 255):
+        exact.index_add_(0, cell, g[rows].double())
+        exact.index_add_(0, cell + 1, h[rows].double())
+    torch.testing.assert_close(got.double().reshape(-1), exact, rtol=1e-6, atol=1e-6)
+    local = torch.where(pos >= 0, pos - int(nodes[0]), -1)
+    assert torch.equal(k_hist.build_histogram(bins, g, h, local, nodes.shape[0], 255), got)
+    assert torch.equal(k_hist.build_histogram_nodes(bins, g, h, pos, nodes, 255), got)
+
+
+@pytest.mark.parametrize("kernel", ["nodes", "window"])
+def test_histogram_kernels_accumulate_pages_like_add(dev, kernel):
+    """``add_into`` over 3 pages gives the bits of the page histograms
+    summed with ``add_`` in page order, as `ops.build_histogram_paged` sums
+    them on the CPU; one page is big enough for the multi-chunk path."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    m, n_bins = 30, 64
+    sizes = (2 * k_hist.MIN_CHUNK_ROWS + 99, 5000, 777)
+    nodes = torch.tensor([3, 5, 6], dtype=torch.int32, device=dev)
+    node_map = torch.tensor([-1, 0, -1, 1, 2], dtype=torch.int32, device=dev)
+    summed = acc = None
+    for i, n in enumerate(sizes):
+        bins = torch.randint(0, n_bins, (n, m), generator=gen, device=dev, dtype=torch.uint8)
+        g = torch.randn(n, generator=gen, device=dev) * (10 ** i)
+        h = torch.rand(n, generator=gen, device=dev)
+        if kernel == "nodes":
+            pos = torch.randint(2, 7, (n,), generator=gen, device=dev, dtype=torch.int32)
+            args = (bins, g, h, pos, nodes, n_bins)
+            page = k_hist.build_histogram_nodes(*args)
+            acc = k_hist.build_histogram_nodes(*args, add_into=acc)
+        else:
+            pos = torch.randint(-1, 6, (n,), generator=gen, device=dev, dtype=torch.int32)
+            args = (bins, g, h, pos, 3, n_bins, node_map)
+            page = k_hist.build_histogram(*args)
+            acc = k_hist.build_histogram(*args, add_into=acc)
+        summed = page if summed is None else summed.add_(page)
+    assert torch.equal(acc, summed)
 
 
 def test_window_histogram_kernel_empty_and_bad_arguments(dev):

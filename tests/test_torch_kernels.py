@@ -200,11 +200,28 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     (100, 3, 200, 256), (7, 1, 1, 1),
 ])
 def test_histogram_tile_plan_fits_shared_memory(n_rows, m, n_slots, n_bins):
-    slot_tile, feat_tile, rows_per_chunk, smem = k_hist.plan_tiles(
-        n_rows, m, n_slots, n_bins, n_sm=132
-    )
-    assert smem <= k_hist.SMEM_BUDGET <= 227 * 1024
-    assert 1 <= slot_tile <= n_slots and 1 <= feat_tile <= m
-    n_chunks = -(-n_rows // rows_per_chunk)
-    assert n_chunks * rows_per_chunk >= n_rows and n_chunks <= 65535
-    assert -(-n_slots // slot_tile) <= 65535
+    """The launch plan of both histogram kernels, for uint8 and int32 bins:
+    a block's tile and staging buffers fit the card's 227 KB, its threads
+    run whole feature groups, the staged words cover a segment at any byte
+    offset, the grid fits, and the big-slot accumulator is sized from the
+    shapes alone."""
+    for bin_bytes in (1, 4):
+        p = k_hist.plan_launch(n_rows, m, n_slots, n_bins, bin_bytes)
+        tile = p.feat_group * n_bins * 16
+        assert p.smem_bytes == tile + p.batch_rows * (40 + 8 * p.stage_words)
+        assert p.smem_bytes <= 227 * 1024 and p.batch_rows >= 1
+        assert 1 <= p.feat_group <= m and p.n_groups == -(-m // p.feat_group)
+        assert (p.n_groups - 1) * p.feat_group < m <= p.n_groups * p.feat_group
+        assert p.threads % p.feat_group == 0 and p.feat_group <= p.threads <= 512
+        assert 4 * p.stage_words >= 3 + p.feat_group * bin_bytes
+        assert p.n_groups <= 65535 and p.items_bound * p.n_groups <= 2**31 - 1
+        assert p.items_bound == n_slots + n_rows // p.min_chunk
+        assert p.big_bound == min(n_slots, n_rows // p.min_chunk)
+        assert p.target_items * p.n_groups >= k_hist.TARGET_WAVES * 132 * k_hist.SCATTER_BLOCKS_PER_SM
+        # whatever C the card picks, the work items and big slots stay in their bounds
+        for matched in {0, 1, n_rows // 3, n_rows}:
+            c = p.chunk_rows(matched)
+            assert c >= p.min_chunk and n_slots + matched // c <= p.items_bound
+            assert min(n_slots, matched // c) <= p.big_bound
+        assert p.acc_values == p.big_bound * m * n_bins * 2
+        assert p.ws_ints == 5 + 4 * n_slots + 2 * p.items_bound + 3 * n_rows
