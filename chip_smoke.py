@@ -16,7 +16,8 @@ Phases, each of which fails the run on error:
      10-tree ``GradientBooster(device="cuda")`` fit with a 100k-row eval set,
      and ``predict_margin`` of the eval rows (binning included); every
      kernel's launch count is zeroed before and read after, and each must be
-     > 0;
+     > 0; then a second pass of the binning splits its seconds into the
+     host-to-device copies, the kernel and the copies back;
   3. holds each kernel against its plain PyTorch version on the card at the
      shapes the paths give it (histogram: all training rows, 500 features,
      256 bins, 64 build nodes; partition: a trained tree over all training
@@ -26,7 +27,12 @@ Phases, each of which fails the run on error:
      where one exists, one PyTorch library call computing the same function;
      the histogram also bit for bit against the fixed-point plain version,
      and timed at each level of the in-core booster's first tree (its real
-     positions and build sets), beside the in-core seconds per tree;
+     positions and build sets), beside the in-core seconds per tree; the
+     partition with the next level's row counts folded in (positions and
+     counts bit for bit), and at each level of that tree against the
+     sequence it replaces (the kernel, then ``level_row_counts``); beside
+     partition and binning, what the memory system gives for their inputs
+     (a gather of one bin a row; one read and one copy of the raw rows);
   4. fits twice in core on a 200k-row subset and requires identical trees;
   5. requires ``predict_margin`` to equal the per-tree loop bit for bit;
   6. drives the out-of-core streaming path at the same width: the training
@@ -42,7 +48,9 @@ Phases, each of which fails the run on error:
      allocation site from the CUDA allocator's trace. Then one pass of the
      page stream holds the histogram and partition kernels against their
      plain versions on every staged page (the histogram also bit for bit
-     against the fixed-point one), the page-summed histogram against the
+     against the fixed-point one; the partition's counts added over all
+     pages into one buffer against the counts of the concatenated
+     positions), the page-summed histogram against the
      plain histogram of the concatenated pages and bit for bit against the
      fixed-point pages summed with ``add_``;
   7. fits twice more by streaming (3 trees, a 200k-row subset, the page
@@ -220,6 +228,7 @@ def main(argv=None) -> int:
         f"eval_auc={eval_auc:.6f} peak_device_bytes={in_core_peak} (at start {in_core_base})"
     )
     print(f"in-core path launches: {json.dumps(in_core_launches)}")
+    binning_split(dm, X, dev)
     if booster.decision_.mode != "in_core":
         raise SystemExit("the in-core path did not train in core")
     if not all(in_core_launches[k] > 0 for k in node_path):
@@ -725,6 +734,7 @@ def page_kernel_checks(seed: int, dev, sdm, tree) -> None:
     Restores the launch counts."""
     import torch
 
+    from repro_torch.core.histcache import level_row_counts
     from repro_torch.kernels import histogram as k_hist
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import partition as k_part
@@ -743,6 +753,9 @@ def page_kernel_checks(seed: int, dev, sdm, tree) -> None:
     part_args = (tree.feature, tree.split_bin, tree.default_left, tree.is_leaf)
     saved = k_hist.launches, k_part.launches
     hist_err, pages, fixed_sum = 0.0, {}, None
+    window = (127, 128)  # level 7's nodes: the counts after level 6's partition
+    counts = torch.zeros(128, dtype=torch.int32, device=dev)
+    moved = {}  # per page, the plain version's new positions
     for sp in sdm.page_set().stream(device=dev, staging_depth=2):
         ro, nr = sp.host.row_offset, sp.host.n_rows
         args = (sp.device, g[ro : ro + nr], h[ro : ro + nr], positions[sp.index], nodes, 255)
@@ -762,22 +775,37 @@ def page_kernel_checks(seed: int, dev, sdm, tree) -> None:
         for _ in range(6):  # rows at level 6 of the first tree
             level_pos = ref.partition_rows(sp.device, level_pos, *part_args)
         level_pos[torch.rand(nr, generator=gen, device=dev) < 0.05] = -1
-        if not torch.equal(k_part.partition_rows(sp.device, level_pos, *part_args),
-                           ref.partition_rows(sp.device, level_pos, *part_args)):
+        moved[sp.index] = ref.partition_rows(sp.device, level_pos, *part_args)
+        # one counts buffer for every page, as the streaming path passes it
+        if not torch.equal(k_part.partition_rows(sp.device, level_pos, *part_args, window,
+                                                 counts), moved[sp.index]):
             raise SystemExit(f"partition kernel disagrees with its plain version on "
                              f"streamed page {sp.index}")
         if sp.index == 0:  # timed while the prefetch thread reads the next pages
             first = args
             hist_k = functools.partial(k_hist.build_histogram_nodes, *args)
-            part_k = functools.partial(k_part.partition_rows, sp.device, level_pos, *part_args)
+            scratch = torch.zeros_like(counts)
+
+            def part_k(pos=level_pos, page=sp.device):
+                return k_part.partition_rows(page, pos, *part_args, window, scratch)
+
+            def part_seq(pos=level_pos, page=sp.device):  # what a page cost before
+                new = k_part.partition_rows(page, pos, *part_args)
+                return scratch + level_row_counts(new, *window)
+
             t = dict(hist=_time_ms(hist_k, 10), hist_dev=_time_ms(hist_k, 10, queued=True),
-                     part=_time_ms(part_k, 20), part_dev=_time_ms(part_k, 20, queued=True))
+                     part=_time_ms(part_k, 20), part_dev=_time_ms(part_k, 20, queued=True),
+                     seq=_time_ms(part_seq, 20), seq_dev=_time_ms(part_seq, 20, queued=True))
         pages[sp.index] = sp.device
     t["bound"], t["by"], t["lib"], _ = _hist_yardsticks(
         *first[:3], ref.row_slots(first[3], nodes).long(), 64, 64
     )
     t["table"], t["search"] = _slot_lookup_ms(*first[:4], nodes)
     order = sorted(pages)
+    if not torch.equal(counts, ref.level_row_counts(torch.cat([moved[i] for i in order]),
+                                                    *window)):
+        raise SystemExit("partition counts summed over the pages differ from the counts of "
+                         "the concatenated positions")
     paged = ops.build_histogram_paged(
         sdm.page_set().stream(device=dev, staging_depth=2), g, h, positions, 0, 64, 255,
         build_nodes=nodes,
@@ -799,10 +827,14 @@ def page_kernel_checks(seed: int, dev, sdm, tree) -> None:
         f"{pages[0].shape[1]} uint8 each): histogram max_abs_err={hist_err:.3g} "
         f"(rtol=atol=1e-5) and == the fixed-point plain version on every page (bitwise), "
         f"partition equal; page-summed histogram == the fixed-point pages summed with add_ "
-        f"(bitwise), vs plain over the concatenated pages max_abs_err={sum_err:.3g}; at page "
+        f"(bitwise), vs plain over the concatenated pages max_abs_err={sum_err:.3g}; "
+        f"partition with level 7's counts added over all pages into one buffer == "
+        f"level_row_counts of the concatenated positions; at page "
         f"0 histogram ms={t['hist']:.4f} device_ms={t['hist_dev']:.4f} bound_ms={t['bound']:.4f} "
-        f"({t['by']}) library_ms={t['lib']:.4f} (index_put_ accumulate), partition "
-        f"ms={t['part']:.4f} device_ms={t['part_dev']:.4f}; histogram slot lookup by id table "
+        f"({t['by']}) library_ms={t['lib']:.4f} (index_put_ accumulate), partition with counts "
+        f"ms={t['part']:.4f} device_ms={t['part_dev']:.4f} against the kernel, "
+        f"level_row_counts and the add ms={t['seq']:.4f} device_ms={t['seq_dev']:.4f}; "
+        f"histogram slot lookup by id table "
         f"device_ms={t['table']:.4f}, by search (one far empty node added, same bits) "
         f"device_ms={t['search']:.4f}"
     )
@@ -895,6 +927,97 @@ def level_times(bins, g, h, tree, per_tree_s: float) -> None:
           f"per_tree={per_tree_s * 1e3:.4f} ms")
 
 
+def partition_level_times(bins, tree) -> None:
+    """The partition kernel with the next level's counts folded in, against
+    the sequence it replaces (the kernel without counts, then
+    `level_row_counts` of its positions), at every level of the in-core
+    booster's first tree that counts a next level: the rows' real positions,
+    all training rows. Each side as a level of the path pays it, a fresh
+    zeroed counts buffer included; both give the same positions and counts."""
+    import torch
+
+    from repro_torch.core.histcache import level_row_counts
+    from repro_torch.kernels import partition as k_part
+    from repro_torch.kernels import ref
+
+    dev = bins.device
+    part_args = (tree.feature, tree.split_bin, tree.default_left, tree.is_leaf)
+    pos = torch.zeros(bins.shape[0], dtype=torch.int32, device=dev)
+    totals = [0.0] * 5
+    for depth in range(tree.max_depth - 1):
+        window = (2 ** (depth + 1) - 1, 2 ** (depth + 1))
+
+        def fused(pos=pos, window=window):
+            counts = torch.zeros(window[1], dtype=torch.int32, device=dev)
+            return k_part.partition_rows(bins, pos, *part_args, window, counts), counts
+
+        def sequence(pos=pos, window=window):
+            new = k_part.partition_rows(bins, pos, *part_args)
+            return new, level_row_counts(new, *window)
+
+        def alone(pos=pos):
+            return k_part.partition_rows(bins, pos, *part_args)
+
+        (fp, fc), (qp, qc) = fused(), sequence()
+        if not (torch.equal(fp, qp) and torch.equal(fc, qc)):
+            raise SystemExit(f"fused partition + counts differs from the sequence at level "
+                             f"{depth}")
+        t = (_time_ms(fused, 20), _time_ms(fused, 20, queued=True),
+             _time_ms(sequence, 20), _time_ms(sequence, 20, queued=True),
+             _time_ms(alone, 20, queued=True))
+        totals = [a + b for a, b in zip(totals, t)]
+        print(f"  partition + counts, tree 0 level {depth} (window {window}, "
+              f"{int(fc.sum())} rows counted): fused ms={t[0]:.4f} device_ms={t[1]:.4f}; "
+              f"sequence ms={t[2]:.4f} device_ms={t[3]:.4f}; fused faster: "
+              f"{t[0] < t[2] and t[1] < t[3]}; the kernel without counts device_ms={t[4]:.4f}")
+        pos = ref.partition_rows(bins, pos, *part_args)
+    print(f"  partition + counts, tree 0, levels 0-{tree.max_depth - 2}: fused "
+          f"ms={totals[0]:.4f} device_ms={totals[1]:.4f}; sequence ms={totals[2]:.4f} "
+          f"device_ms={totals[3]:.4f}; the kernel without counts device_ms={totals[4]:.4f}")
+
+
+def binning_split(dm, X, dev) -> None:
+    """Where the in-core binning's seconds (`binning=`) go: a second pass over
+    the chunks `Binner.to_host` bins (one page of rows each), timing the
+    pageable host-to-device copy of the raw rows (host clock, synchronised),
+    the kernel (CUDA events) and the copy back into the host matrix (host
+    clock). The bins must equal the in-core matrix's. Restores the binning
+    kernel's launch count."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.ellpack import Binner
+    from repro_torch.kernels import ellpack_bin as k_bin
+
+    binner = Binner(dm.cuts, dev)
+    dtype = np.float32 if np.result_type(X.dtype, np.float32) == np.float32 else np.float64
+    out = np.empty((len(X), binner.num_features), np.uint8)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    saved = k_bin.launches
+    h2d_s = kernel_s = d2h_s = 0.0
+    t_all = time.perf_counter()
+    for lo in range(0, len(X), binner.chunk_rows):
+        t0 = time.perf_counter()
+        x = torch.from_numpy(np.ascontiguousarray(X[lo : lo + binner.chunk_rows], dtype)).to(dev)
+        torch.cuda.synchronize()
+        h2d_s += time.perf_counter() - t0
+        start.record()
+        bins = k_bin.bin_values(x, binner.edges, binner.n_bins)
+        end.record()
+        end.synchronize()
+        kernel_s += start.elapsed_time(end) / 1e3
+        t0 = time.perf_counter()
+        out[lo : lo + bins.shape[0]] = bins.cpu().numpy()
+        d2h_s += time.perf_counter() - t0
+    total_s = time.perf_counter() - t_all
+    n_chunks, k_bin.launches = k_bin.launches - saved, saved
+    if not np.array_equal(out, dm.single_page_bins()):
+        raise SystemExit("the binning split's bins differ from the in-core matrix")
+    print(f"binning split (a second pass, {n_chunks} chunks of {binner.chunk_rows} rows, "
+          f"{np.dtype(dtype).name}): host-to-device copy {h2d_s:.3f} s, kernel {kernel_s:.4f} s "
+          f"(CUDA events), copy back and placement {d2h_s:.3f} s, total {total_s:.3f} s")
+
+
 def kernel_checks(seed: int, dev, dm, booster, X, Xe, per_tree_s: float) -> list[dict]:
     """Phase 3: each kernel against its plain version at the paths' shapes,
     timed beside its bound and a library call; restores the launch counts."""
@@ -967,23 +1090,40 @@ def kernel_checks(seed: int, dev, dm, booster, X, Xe, per_tree_s: float) -> list
         level_pos = ref.partition_rows(bins, level_pos, *part_args)
     level_pos[torch.rand(n, generator=gen, device=dev) < 0.05] = -1
     saved = k_part.launches
-    got = k_part.partition_rows(bins, level_pos, *part_args)
-    want = ref.partition_rows(bins, level_pos, *part_args)
-    if not torch.equal(got, want):
-        raise SystemExit("partition kernel disagrees with its plain version")
+    window = (127, 128)  # level 7's nodes, the counts the histogram store plans by
+    got_c, want_c = (torch.zeros(128, dtype=torch.int32, device=dev) for _ in range(2))
+    got = k_part.partition_rows(bins, level_pos, *part_args, window, got_c)
+    want = ref.partition_rows(bins, level_pos, *part_args, window, want_c)
+    if not (torch.equal(got, want) and torch.equal(got_c, want_c)):
+        raise SystemExit("partition kernel (positions and counts) disagrees with its plain "
+                         "version")
     moved = int(((level_pos >= 0) & ~t0_tree.is_leaf[level_pos.clamp(min=0).long()]).sum())
-    pb, pb_by = _bound(n * 8 + moved + t0_tree.n_total * 10, n)
+    pb, pb_by = _bound(n * 8 + moved + t0_tree.n_total * 10 + 128 * 4, n)
+
+    def part_k():
+        return k_part.partition_rows(bins, level_pos, *part_args, window, got_c)
+
+    def part_p():
+        return ref.partition_rows(bins, level_pos, *part_args, window, want_c)
+
     results.append(dict(
         name="partition_rows", route="cuda",
         source="src/repro_torch/kernels/csrc/partition.cu",
         replaces="src/repro/kernels/partition.py:82",
-        max_abs_err=0.0,
-        ms=_time_ms(lambda: k_part.partition_rows(bins, level_pos, *part_args), 20),
-        device_ms=_time_ms(lambda: k_part.partition_rows(bins, level_pos, *part_args), 20,
-                           queued=True),
-        plain_ms=_time_ms(lambda: ref.partition_rows(bins, level_pos, *part_args), 5),
-        bound_ms=pb, bound_by=pb_by, library_ms=None,
+        max_abs_err=0.0, ms=_time_ms(part_k, 20), device_ms=_time_ms(part_k, 20, queued=True),
+        plain_ms=_time_ms(part_p, 5), bound_ms=pb, bound_by=pb_by, library_ms=None,
     ))
+    # the floor of reading one byte a row at the node's feature: the same
+    # bins gathered by one PyTorch call, the feature index precomputed
+    f_idx = t0_tree.feature[level_pos.clamp(min=0).long()].long().clamp_(0, m - 1)[:, None]
+    gather_ms = _time_ms(lambda: torch.gather(bins, 1, f_idx), 20, queued=True)
+    del f_idx
+    print(f"kernel partition_rows ({n} x {m} uint8, level 6 of tree 0, 5% inactive, "
+          f"{moved} rows moving, level 7's counts folded in): positions and counts == the "
+          f"plain version (bitwise); ms={results[-1]['ms']:.4f} "
+          f"device_ms={results[-1]['device_ms']:.4f} bound_ms={pb:.4f} ({pb_by}); "
+          f"torch.gather of one bin a row device_ms={gather_ms:.4f}")
+    partition_level_times(bins, t0_tree)
     k_part.launches = saved
     del bins, g, h, pos, level_pos
 
@@ -1060,14 +1200,23 @@ def kernel_checks(seed: int, dev, dm, booster, X, Xe, per_tree_s: float) -> list
             plain_ms=_time_ms(lambda: ref.bin_values(x, edges, nbf), 2),
             library_ms=_time_ms(lambda: torch.searchsorted(lib_edges, xt, side="left"), 5),
             bound_ms=bb, bound_by=bb_by, host_numpy_s=host_s,
+            # what the memory system gives for this input: one read of it
+            # (torch.sum), one read and one write (clone)
+            read_ms=_time_ms(lambda: x.sum(), 20, queued=True),
+            copy_ms=_time_ms(lambda: x.clone(), 20, queued=True),
         )
         del x, xt, got, want
     k_bin.launches = saved
     f32, f64 = bin_rows["float32"], bin_rows["float64"]
     print(f"kernel bin_values float64 ({f64['rows']} x {m}): ms={f64['ms']:.4f} "
+          f"device_ms={f64['device_ms']:.4f} "
           f"plain_ms={f64['plain_ms']:.4f} library_ms={f64['library_ms']:.4f} "
           f"bound_ms={f64['bound_ms']:.4f} ({f64['bound_by']}) host numpy "
           f"{f64['host_numpy_s']:.3f} s; float32 host numpy {f32['host_numpy_s']:.3f} s")
+    for name, r in bin_rows.items():
+        print(f"  bin_values {name} ({r['rows']} x {m}) yardsticks: device_ms={r['device_ms']:.4f}; "
+              f"reading the input once (torch.sum) device_ms={r['read_ms']:.4f}, reading and "
+              f"writing it (clone) device_ms={r['copy_ms']:.4f}")
     results.append(dict(
         name="bin_values", route="cuda",
         source="src/repro_torch/kernels/csrc/ellpack_bin.cu",

@@ -241,7 +241,7 @@ class GradientBooster:
         if decision.mode == "sampled":
             raise NotImplementedError(
                 f"the policy chose 'sampled' ({decision.reason}); gradient-based "
-                "sampling (Alg. 7) is not ported yet (ROADMAP queue 1 item 6)"
+                "sampling (Alg. 7) is not ported yet (ROADMAP queue 1 item 6b)"
             )
         self.cuts = dm.cuts
         if decision.mode == "in_core":

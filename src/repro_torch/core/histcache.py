@@ -14,6 +14,10 @@ sibling as ``parent - built``, roughly halving the histogram work.
   expand(plan, built)        full level histogram from the compact build half
                              and the retained parent level; retained in turn
                              as the next level's parent
+  level_row_counts(pos, offset, count)
+                             rows per node of a level window, the counts
+                             ``plan`` takes (defined beside the partition's
+                             plain version, which computes them in its pass)
 
 The budgeted tiers of the reference (host spill and fetch, ancestor chains)
 and the per-node API of best-first growth are queued; a non-None
@@ -25,6 +29,8 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.kernels.ref import level_row_counts  # noqa: F401 (re-exported)
 
 Tensor = torch.Tensor
 
@@ -85,15 +91,12 @@ class HistCacheStats:
         return self.total_rows / built if built else 1.0
 
 
-def level_row_counts(positions: Tensor, offset: int, count: int) -> Tensor:
-    """(count,) int32 rows per window-local node of ``[offset, offset +
-    count)``; rows outside the window count nowhere."""
-    lp = positions.to(torch.int64) - offset
-    valid = (lp >= 0) & (lp < count)
-    safe = torch.where(valid, lp, torch.full_like(lp, count))  # overflow slot
-    counts = torch.zeros(count + 1, dtype=torch.int32, device=positions.device)
-    counts.scatter_add_(0, safe, torch.ones_like(safe, dtype=torch.int32))
-    return counts[:count]
+def new_level_counts(count_level: tuple[int, int] | None, device) -> Tensor | None:
+    """Zeroed (count,) int32 counts of a level window ``(offset, count)``, for
+    `ops.partition_rows` to add into over a level's pages; None without one."""
+    if count_level is None:
+        return None
+    return torch.zeros(count_level[1], dtype=torch.int32, device=device)
 
 
 def plan_level(count: int, level_counts: Tensor) -> tuple[Tensor, Tensor]:

@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.histcache import HistogramStore, LevelPlan, level_row_counts
+from repro_torch.core.histcache import HistogramStore, LevelPlan, new_level_counts
 from repro_torch.core.tree import TreeArrays, TreeParams, grow_tree_generic
 from repro_torch.kernels import ops
 
@@ -60,14 +60,13 @@ def build_tree_paged(
         )
 
     def partition_fn(feature, split_bin, default_left, is_leaf, count_level):
-        counts = None
+        # one launch per page; every page adds its rows into the same counts
+        counts = new_level_counts(count_level, g.device)
         for sp in make_stream():
             positions[sp.index] = ops.partition_rows(
-                sp.device, positions[sp.index], feature, split_bin, default_left, is_leaf
+                sp.device, positions[sp.index], feature, split_bin, default_left, is_leaf,
+                count_level, counts,
             )
-            if count_level is not None:
-                c = level_row_counts(positions[sp.index], *count_level)
-                counts = c if counts is None else counts + c
         return counts
 
     tree = grow_tree_generic(

@@ -26,7 +26,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.histcache import HistogramStore, LevelPlan, level_row_counts
+from repro_torch.core.histcache import HistogramStore, LevelPlan, new_level_counts
 from repro_torch.core.split import LevelSplits, SplitParams, evaluate_splits, leaf_weight
 from repro_torch.kernels import ops
 
@@ -227,12 +227,11 @@ def grow_tree(
         return ops.build_histogram_nodes(bins, g, h, pos_box[0], plan.build_nodes, n_bins)
 
     def partition_fn(feature, split_bin, default_left, is_leaf, count_level):
+        counts = new_level_counts(count_level, bins.device)
         pos_box[0] = ops.partition_rows(
-            bins, pos_box[0], feature, split_bin, default_left, is_leaf
+            bins, pos_box[0], feature, split_bin, default_left, is_leaf, count_level, counts
         )
-        if count_level is None:
-            return None
-        return level_row_counts(pos_box[0], *count_level)
+        return counts
 
     tree = grow_tree_generic(
         hist_fn, partition_fn, g.sum(), h.sum(), n_bins, bin_valid, params,

@@ -204,7 +204,7 @@ class _WorkerState:
     def _op_partition(self, msg: dict) -> dict:
         import torch
 
-        from repro_torch.core.histcache import level_row_counts
+        from repro_torch.core.histcache import new_level_counts
         from repro_torch.kernels import ops
 
         sh = self.shards[int(msg["shard"])]
@@ -213,14 +213,13 @@ class _WorkerState:
             for k in ("feature", "split_bin", "default_left", "is_leaf")
         ]
         window = msg["count_window"]
-        counts = None
+        window = None if window is None else (int(window[0]), int(window[1]))
+        # one launch per page; every page adds its rows into the same counts
+        counts = new_level_counts(window, self.device)
         for sp in self._stream(sh):
             sh.positions[sp.index] = ops.partition_rows(
-                sp.device, sh.positions[sp.index], *split
+                sp.device, sh.positions[sp.index], *split, window, counts
             )
-            if window is not None:
-                c = level_row_counts(sh.positions[sp.index], int(window[0]), int(window[1]))
-                counts = c if counts is None else counts + c
         return {"counts": None if counts is None else counts.cpu().numpy()}
 
     def _op_finish_tree(self, msg: dict) -> dict:

@@ -20,6 +20,20 @@ def require(t: torch.Tensor, name: str, dtypes: tuple, shape: tuple, device) -> 
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_count_window(count_level, counts, device) -> None:
+    """Raise unless ``count_level`` and ``counts`` are both None, or a window
+    ``(offset >= 0, count >= 1)`` and an int32 ``(count,)`` buffer on
+    ``device``."""
+    if count_level is None and counts is None:
+        return
+    if count_level is None or counts is None:
+        raise ValueError("count_level and counts are given together or not at all")
+    offset, count = count_level
+    if not (0 <= offset < 2**31 and 1 <= count < 2**31):
+        raise ValueError(f"count_level {count_level} is not a window (offset >= 0, count >= 1)")
+    require(counts, "counts", (torch.int32,), (count,), device)
+
+
 def require_cuda(t: torch.Tensor, what: str) -> None:
     if not t.is_cuda:
         raise ValueError(

@@ -1,9 +1,11 @@
 """ELLPACK quantisation (paper Alg. 4 LookupBin): wrapper of ``csrc/ellpack_bin.cu``.
 
-Counterpart of `repro.kernels.ellpack_bin.bin_values`. The kernel stages a
-feature tile's edges in shared memory and binary-searches each value, in the
-input's own type (float32 or float64), and writes uint8 bins with 255 for
-NaN. Plain version: `repro_torch.kernels.ref.bin_values`.
+Counterpart of `repro.kernels.ellpack_bin.bin_values`. A block stages the
+edges of up to four 32-feature tiles in shared memory (k-major, transposed
+from the public (m, B) layout inside the kernel) for a long run of rows,
+copies the values in with ``cp.async``, and binary-searches several values a
+thread together, in the input's own type (float32 or float64); it writes
+uint8 bins with 255 for NaN. Plain version: `repro_torch.kernels.ref.bin_values`.
 """
 from __future__ import annotations
 
@@ -12,8 +14,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import require, require_cuda, stream_ptr
 
-# widest edge table a block stages: 32 features x (1024 + 1) f32 = 131 KB of
-# shared memory, within the card's 227 KB per block
+# widest edge table a block stages: 32 features x 1023 f32 rows, 128 KB of
+# shared memory beside a 12 KB value ring, within the card's 227 KB a block
 MAX_EDGES = 1024
 
 launches = 0

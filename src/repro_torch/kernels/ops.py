@@ -103,12 +103,17 @@ def bin_values(x, padded_edges, n_bins_per_feature):
     return _ref.bin_values(x, padded_edges, n_bins_per_feature)
 
 
-def partition_rows(bins, positions, feature, split_bin, default_left, is_leaf):
+def partition_rows(
+    bins, positions, feature, split_bin, default_left, is_leaf, count_level=None, counts=None
+):
+    """New positions after one level's splits. With ``count_level`` (the next
+    level's ``(offset, count)``) the rows per node of that window are added
+    into ``counts`` ((count,) int32) in the same pass, so one buffer zeroed
+    once per level sums a stream pass's pages."""
+    args = (bins, positions, feature, split_bin, default_left, is_leaf, count_level, counts)
     if bins.is_cuda:
-        return _partition.partition_rows(
-            bins, positions, feature, split_bin, default_left, is_leaf
-        )
-    return _ref.partition_rows(bins, positions, feature, split_bin, default_left, is_leaf)
+        return _partition.partition_rows(*args)
+    return _ref.partition_rows(*args)
 
 
 def predict_bins(bins, feature, split_bin, default_left, is_leaf, leaf_value, max_depth: int):

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._checks import check_count_window
+
 MISSING_BIN = 255
 
 # rows per chunk of the scatter in `build_histogram_nodes`: bounds the
@@ -189,6 +191,18 @@ def bin_values(
     return out
 
 
+def level_row_counts(positions: torch.Tensor, offset: int, count: int) -> torch.Tensor:
+    """(count,) int32 rows per window-local node of ``[offset, offset +
+    count)``; rows outside the window count nowhere. Counterpart of
+    `repro.core.histcache.level_row_counts`."""
+    lp = positions.to(torch.int64) - offset
+    valid = (lp >= 0) & (lp < count)
+    safe = torch.where(valid, lp, torch.full_like(lp, count))  # overflow slot
+    counts = torch.zeros(count + 1, dtype=torch.int32, device=positions.device)
+    counts.scatter_add_(0, safe, torch.ones_like(safe, dtype=torch.int32))
+    return counts[:count]
+
+
 def partition_rows(
     bins: torch.Tensor,  # (n_rows, m) uint8 or int32
     positions: torch.Tensor,  # (n_rows,) int32; < 0 = retired
@@ -196,9 +210,13 @@ def partition_rows(
     split_bin: torch.Tensor,  # (n_nodes,) int32 (go left iff bin <= split_bin)
     default_left: torch.Tensor,  # (n_nodes,) bool missing direction
     is_leaf: torch.Tensor,  # (n_nodes,) bool
+    count_level: tuple[int, int] | None = None,  # (offset, count) of the next level
+    counts: torch.Tensor | None = None,  # (count,) int32, added into
 ) -> torch.Tensor:
     """Rows move to child ``2p+1`` (left) or ``2p+2`` (right); rows at a leaf
-    keep their position; inactive rows stay -1."""
+    keep their position; inactive rows stay -1. With ``count_level``, the
+    new positions' `level_row_counts` are added into ``counts`` in place."""
+    check_count_window(count_level, counts, bins.device)
     pos = positions.to(torch.int32)
     active = pos >= 0
     safe = torch.where(active, pos, torch.zeros_like(pos)).clamp_(max=feature.shape[0] - 1)
@@ -208,7 +226,10 @@ def partition_rows(
     go_left = torch.where(bval == MISSING_BIN, default_left[safe], bval <= split_bin[safe])
     child = 2 * pos + 1 + (~go_left).to(torch.int32)
     moved = torch.where(is_leaf[safe], pos, child)
-    return torch.where(active, moved, torch.full_like(pos, -1))
+    out = torch.where(active, moved, torch.full_like(pos, -1))
+    if count_level is not None:
+        counts.add_(level_row_counts(out, *count_level))
+    return out
 
 
 def _leaf_positions(bins, feature, split_bin, default_left, is_leaf, max_depth):

@@ -6,8 +6,10 @@ on a GPU machine without JAX:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Partition, forest and binning must equal the plain versions bit for bit
-(binning also equals the host `bin_batch`, for float32 and float64 input);
+Partition (with the next level's counts added into a buffer, also past
+the kernel's shared counters and node table), forest and binning must equal
+the plain versions bit for bit (binning also equals the host `bin_batch`,
+for float32 and float64 input, at edge tables 1 to 1,024 wide);
 both histogram kernels equal their fixed-point plain versions
 (`ref.build_histogram_nodes_fixed`, `ref.build_histogram_fixed`) bit for bit,
 are allclose(rtol=1e-5, atol=1e-5) to their f32 plain versions (which sum
@@ -20,7 +22,7 @@ import pytest
 import torch
 
 from repro_torch.core.ellpack import Binner, bin_batch
-from repro_torch.core.quantile import sketch_dense
+from repro_torch.core.quantile import HistogramCuts, sketch_dense
 from repro_torch.kernels import ellpack_bin as k_bin
 from repro_torch.kernels import forest as k_forest
 from repro_torch.kernels import histogram as k_hist
@@ -342,6 +344,161 @@ def test_wrappers_reject_bad_arguments(dev):
             *(torch.zeros(3, dtype=t, device=dev) for t in (torch.int32, torch.int32)),
             *(torch.zeros(3, dtype=torch.bool, device=dev) for _ in range(2)),
         )
+
+
+def _level_tree(gen, dev, n, m, depth, n_bins=255):
+    """uint8 bins, a complete tree of depth ``depth + 1`` and rows at level
+    ``depth`` (5% inactive, 5% frozen at a leaf of the level before), all
+    made on the card from ``gen``."""
+    n_nodes = 2 ** (depth + 2) - 1
+    bins = torch.randint(0, 256, (n, m), generator=gen, device=dev, dtype=torch.int32)
+    bins = torch.where(bins < n_bins, bins, 255).to(torch.uint8)
+    tree = [
+        torch.randint(0, m, (n_nodes,), generator=gen, device=dev, dtype=torch.int32),
+        torch.randint(0, n_bins, (n_nodes,), generator=gen, device=dev, dtype=torch.int32),
+        torch.rand(n_nodes, generator=gen, device=dev) < 0.5,
+        torch.rand(n_nodes, generator=gen, device=dev) < 0.2,
+    ]
+    lo = 2**depth - 1
+    pos = torch.randint(lo, 2 * lo + 1, (n,), generator=gen, device=dev, dtype=torch.int32)
+    if depth:
+        frozen = torch.rand(n, generator=gen, device=dev) < 0.05
+        pos[frozen] = lo - 1
+        tree[3][lo - 1] = True
+    pos[torch.rand(n, generator=gen, device=dev) < 0.05] = -1
+    return bins, pos, tuple(tree)
+
+
+# the paths' shapes at the next level's window of a depth-8 tree: all
+# training rows in core (1M x 500), a staged 32 MiB page (67,108 rows), the
+# last page of an elastic shard (65,784 rows); depth 0 (all rows to 2 slots)
+@pytest.mark.parametrize("n,depth", [(1_000_000, 6), (67_108, 6), (65_784, 6), (67_108, 0)])
+def test_fused_partition_counts_match_plain(dev, n, depth):
+    gen = torch.Generator(device=dev).manual_seed(n + depth)
+    bins, pos, tree = _level_tree(gen, dev, n, 500, depth)
+    window = (2 ** (depth + 1) - 1, 2 ** (depth + 1))
+    got_c = torch.zeros(window[1], dtype=torch.int32, device=dev)
+    want_c = torch.zeros_like(got_c)
+    got = k_part.partition_rows(bins, pos, *tree, window, got_c)
+    want = ref.partition_rows(bins, pos, *tree, window, want_c)
+    assert torch.equal(got, want)
+    assert torch.equal(got_c, want_c) and int(got_c.sum()) > 0
+    assert torch.equal(got_c, ref.level_row_counts(want, *window))
+    # counts are added into, and the kernel without a window gives the same rows
+    again = k_part.partition_rows(bins, pos, *tree, window, got_c)
+    assert torch.equal(again, got) and torch.equal(got_c, 2 * want_c)
+    assert torch.equal(k_part.partition_rows(bins, pos, *tree), got)
+
+
+# deep node tables and windows past what a block counts in shared memory
+# (2,048 counters): depth 12 has 16,383 nodes and an 8,192-node next level;
+# and int32 bins
+@pytest.mark.parametrize("depth,offset,count", [
+    (12, 8191, 8192), (12, 8191, 2048), (12, 0, 1), (9, 1023, 1024), (10, 2047, 2048),
+    (10, 2046, 2049), (4, 31, 32), (4, 10**6, 5),
+])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+def test_fused_partition_wide_tables_and_windows(dev, depth, offset, count, dtype):
+    gen = torch.Generator(device=dev).manual_seed(depth * 7 + count)
+    bins, pos, tree = _level_tree(gen, dev, 50_001, 37, depth)
+    bins = bins.to(dtype)
+    got_c = torch.zeros(count, dtype=torch.int32, device=dev)
+    want_c = torch.zeros_like(got_c)
+    got = k_part.partition_rows(bins, pos, *tree, (offset, count), got_c)
+    want = ref.partition_rows(bins, pos, *tree, (offset, count), want_c)
+    assert torch.equal(got, want) and torch.equal(got_c, want_c)
+    assert torch.equal(got_c, ref.level_row_counts(want, offset, count))
+
+
+def test_fused_partition_counts_accumulate_over_pages(dev):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bins, pos, tree = _level_tree(gen, dev, 200_000, 500, 6)
+    window = (127, 128)
+    counts = torch.zeros(128, dtype=torch.int32, device=dev)
+    pages = [
+        k_part.partition_rows(bins[lo:hi], pos[lo:hi], *tree, window, counts)
+        for lo, hi in ((0, 67_108), (67_108, 134_216), (134_216, 200_000))
+    ]
+    whole = ref.partition_rows(bins, pos, *tree)
+    assert torch.equal(torch.cat(pages), whole)
+    assert torch.equal(counts, ref.level_row_counts(whole, *window))
+
+
+def test_fused_partition_rejects_bad_windows(dev):
+    bins = torch.zeros((4, 2), dtype=torch.uint8, device=dev)
+    pos = torch.zeros(4, dtype=torch.int32, device=dev)
+    tree = (torch.zeros(3, dtype=torch.int32, device=dev),
+            torch.zeros(3, dtype=torch.int32, device=dev),
+            torch.zeros(3, dtype=torch.bool, device=dev),
+            torch.zeros(3, dtype=torch.bool, device=dev))
+    with pytest.raises(ValueError, match="together"):
+        k_part.partition_rows(bins, pos, *tree, (1, 2))
+    with pytest.raises(ValueError, match="is on cpu"):
+        k_part.partition_rows(bins, pos, *tree, (1, 2), torch.zeros(2, dtype=torch.int32))
+
+
+def _explicit_cuts(rng, m, width):
+    """`HistogramCuts` with a random count of strictly increasing f32 edges
+    per feature, 1..width (feature 0 exactly width, so the padded edge table
+    is ``width`` wide)."""
+    nb = rng.integers(1, width + 1, m)
+    nb[0] = width
+    values = [
+        (np.cumsum(rng.random(k) + 0.01) - 0.3 * k).astype(np.float32) for k in nb
+    ]
+    ptrs = np.concatenate([[0], np.cumsum(nb)]).astype(np.int32)
+    return HistogramCuts(values=np.concatenate(values), ptrs=ptrs,
+                         min_vals=np.asarray([v[0] for v in values], np.float32))
+
+
+def _values_around_edges(rng, cuts, n, dtype):
+    """(n, m) values: most spread over the edges' range, a quarter on an edge
+    or one step beside it in ``dtype`` (f64: between f32 neighbours), and
+    NaN, +-inf, +-0."""
+    m = cuts.num_features
+    X = (rng.normal(size=(n, m)) * np.maximum(cuts.n_bins_per_feature, 1) * 0.3).astype(dtype)
+    flat = X.reshape(-1)
+    pick = rng.choice(n * m, n * m // 4, replace=False)
+    feat = pick % m
+    lo, hi = cuts.ptrs[feat], cuts.ptrs[feat + 1]
+    edge = cuts.values[lo + (rng.random(pick.size) * (hi - lo)).astype(np.int64)].astype(dtype)
+    side = rng.integers(-1, 2, pick.size)
+    flat[pick] = np.where(side < 0, np.nextafter(edge, dtype(-np.inf)),
+                          np.where(side > 0, np.nextafter(edge, dtype(np.inf)), edge))
+    special = rng.choice(n * m, min(n * m, 64), replace=False)
+    flat[special] = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0], dtype)[
+        np.arange(special.size) % 5]
+    return X
+
+
+def _check_binning(dev, X, cuts):
+    binner = Binner(cuts, dev)
+    x = torch.from_numpy(X).to(dev)
+    got = k_bin.bin_values(x, binner.edges, binner.n_bins)
+    assert torch.equal(got, ref.bin_values(x, binner.edges, binner.n_bins))
+    np.testing.assert_array_equal(got.cpu().numpy(), bin_batch(X, cuts))
+    return got
+
+
+# feature tiles of one lane, 31 and 33 features, the paper's width; padded
+# edge tables 1 to 1,024 wide; 3,001 rows, a multiple of no tile or stage
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("max_bin", [1, 2, 255, 256, 1024])
+@pytest.mark.parametrize("m", [1, 31, 33, 500])
+def test_bin_kernel_widths_match_plain_and_host(dev, m, max_bin, dtype):
+    rng = np.random.default_rng(m * 2000 + max_bin)
+    cuts = _explicit_cuts(rng, m, max_bin)
+    assert Binner(cuts, dev).edges.shape == (m, max_bin)
+    _check_binning(dev, _values_around_edges(rng, cuts, 3001, dtype), cuts)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_bin_kernel_in_core_shape(dev, dtype):
+    """All 1M x 500 rows of the in-core path in one launch, 255-wide edges."""
+    rng = np.random.default_rng(11)
+    cuts = _explicit_cuts(rng, 500, 255)
+    got = _check_binning(dev, _values_around_edges(rng, cuts, 1_000_000, dtype), cuts)
+    assert got.shape == (1_000_000, 500)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
