@@ -16,12 +16,15 @@ Phases, each of which fails the run on error:
      10-tree ``GradientBooster(device="cuda")`` fit with a 100k-row eval set,
      and ``predict_margin`` of the eval rows (binning included); every
      kernel's launch count is zeroed before and read after, and each must be
-     > 0; then a second pass of the binning splits its seconds into the
+     > 0; then a second predict of the eval rows splits its milliseconds
+     into the host-to-device copies, the binning kernel, the forest and the
+     copy back, and a second pass of the binning splits its seconds into the
      host-to-device copies, the kernel and the copies back;
   3. holds each kernel against its plain PyTorch version on the card at the
      shapes the paths give it (histogram: all training rows, 500 features,
      256 bins, 64 build nodes; partition: a trained tree over all training
-     rows; forest: the trained forest over the eval rows; binning: one
+     rows; forest: the trained forest over the eval rows, and a served
+     forest of 256 random trees of depth 8 over all training rows; binning: one
      32 MiB page's rows in float32, and the eval rows in float64, also
      against the host `bin_batch`), and times kernel, plain version and,
      where one exists, one PyTorch library call computing the same function;
@@ -31,8 +34,9 @@ Phases, each of which fails the run on error:
      partition with the next level's row counts folded in (positions and
      counts bit for bit), and at each level of that tree against the
      sequence it replaces (the kernel, then ``level_row_counts``); beside
-     partition and binning, what the memory system gives for their inputs
-     (a gather of one bin a row; one read and one copy of the raw rows);
+     partition, forest and binning, what the memory system gives for their
+     inputs (a gather of one bin a row; one read of the bins; one read and
+     one copy of the raw rows);
   4. fits twice in core on a 200k-row subset and requires identical trees;
   5. requires ``predict_margin`` to equal the per-tree loop bit for bit;
   6. drives the out-of-core streaming path at the same width: the training
@@ -228,6 +232,7 @@ def main(argv=None) -> int:
         f"eval_auc={eval_auc:.6f} peak_device_bytes={in_core_peak} (at start {in_core_base})"
     )
     print(f"in-core path launches: {json.dumps(in_core_launches)}")
+    predict_split(booster, Xe, margin, dev)
     binning_split(dm, X, dev)
     if booster.decision_.mode != "in_core":
         raise SystemExit("the in-core path did not train in core")
@@ -976,6 +981,64 @@ def partition_level_times(bins, tree) -> None:
           f"device_ms={totals[3]:.4f}; the kernel without counts device_ms={totals[4]:.4f}")
 
 
+def predict_split(booster, Xe, margin, dev) -> None:
+    """Where the in-core ``predict=`` milliseconds go: a second predict of
+    the eval rows, step by step as ``predict_margin`` takes them (the binner
+    built from the cuts; per chunk of one page's rows, the pageable
+    host-to-device copy of the raw rows, host clock, synchronised; the
+    binning kernel and the placement of its bins, CUDA events; then the
+    forest, CUDA events: the eager leaf pre-scale, the packing and the walk;
+    and the copy of the margins back, host clock). The margins must equal the
+    first predict's. Restores the binning and forest launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.ellpack import Binner
+    from repro_torch.kernels import ellpack_bin as k_bin
+    from repro_torch.kernels import forest as k_forest
+
+    forest = booster.packed_forest()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    saved = k_bin.launches, k_forest.launches
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    binner = Binner(booster.cuts, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_all
+    dtype = np.float32 if np.result_type(Xe.dtype, np.float32) == np.float32 else np.float64
+    bins = torch.empty((len(Xe), binner.num_features), dtype=torch.uint8, device=dev)
+    h2d_s = bin_s = 0.0
+    for lo in range(0, len(Xe), binner.chunk_rows):
+        t0 = time.perf_counter()
+        x = torch.from_numpy(np.ascontiguousarray(Xe[lo : lo + binner.chunk_rows], dtype)).to(dev)
+        torch.cuda.synchronize()
+        h2d_s += time.perf_counter() - t0
+        start.record()
+        bins[lo : lo + x.shape[0]] = k_bin.bin_values(x, binner.edges, binner.n_bins)
+        end.record()
+        end.synchronize()
+        bin_s += start.elapsed_time(end) / 1e3
+    start.record()
+    out = forest.predict_margin_bins(bins)
+    end.record()
+    end.synchronize()
+    forest_s = start.elapsed_time(end) / 1e3
+    t0 = time.perf_counter()
+    host = out.cpu().numpy()
+    d2h_s = time.perf_counter() - t0
+    total_s = time.perf_counter() - t_all
+    n_chunks = k_bin.launches - saved[0]
+    k_bin.launches, k_forest.launches = saved
+    if not np.array_equal(host, margin):
+        raise SystemExit("the predict split's margins differ from the in-core predict")
+    print(f"predict split (a second predict of the {len(Xe)} eval rows, {n_chunks} chunks of "
+          f"{binner.chunk_rows} rows, {np.dtype(dtype).name}): binner set-up "
+          f"{setup_s * 1e3:.3f} ms, host-to-device copy {h2d_s * 1e3:.3f} ms, binning kernel "
+          f"and placement {bin_s * 1e3:.4f} ms (CUDA events), forest (leaf pre-scale, packing "
+          f"and walk) {forest_s * 1e3:.4f} ms (CUDA events), copy back {d2h_s * 1e3:.3f} ms, "
+          f"total {total_s * 1e3:.3f} ms")
+
+
 def binning_split(dm, X, dev) -> None:
     """Where the in-core binning's seconds (`binning=`) go: a second pass over
     the chunks `Binner.to_host` bins (one page of rows each), timing the
@@ -1018,6 +1081,122 @@ def binning_split(dm, X, dev) -> None:
           f"(CUDA events), copy back and placement {d2h_s:.3f} s, total {total_s:.3f} s")
 
 
+def serving_forest(seed: int, dev, n_trees: int, depth: int, m: int):
+    """A served forest's planes, made on the card from ``seed``: complete
+    layout, the last level all leaves and about 10% early leaves above it,
+    features in [0, m), split bins in [0, 254], random default_left, and
+    normal leaf values pre-scaled by the paper config's lr 0.1 (one eager
+    multiply)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    shape = (n_trees, 2 ** (depth + 1) - 1)
+    feature = torch.randint(0, m, shape, generator=gen, device=dev, dtype=torch.int32)
+    split_bin = torch.randint(0, 255, shape, generator=gen, device=dev, dtype=torch.int32)
+    default_left = torch.rand(shape, generator=gen, device=dev) < 0.5
+    is_leaf = torch.rand(shape, generator=gen, device=dev) < 0.1
+    is_leaf[:, 2**depth - 1:] = True
+    leaf = torch.randn(shape, generator=gen, device=dev)
+    scaled = torch.tensor(0.1, dtype=torch.float32, device=dev) * leaf
+    return feature, split_bin, default_left, is_leaf, scaled
+
+
+def _forest_reads(bins, feature, split_bin, default_left, is_leaf, max_depth: int):
+    """(internal nodes the rows visit, distinct (row, feature) bins those
+    visits read): what this run's data needs of the bins."""
+    import torch
+
+    n, m = bins.shape
+    dev = bins.device
+    flat_rows = torch.arange(n, device=dev, dtype=torch.int64) * m
+    touched = torch.zeros(n * m + 1, dtype=torch.bool, device=dev)  # last: no bin
+    visits = torch.zeros((), dtype=torch.int64, device=dev)
+    for t in range(feature.shape[0]):
+        p = torch.zeros(n, dtype=torch.int64, device=dev)
+        for _ in range(max_depth):
+            inner = ~is_leaf[t][p]
+            visits += inner.sum()
+            f_idx = feature[t][p].long().clamp_(0, m - 1)
+            touched[torch.where(inner, flat_rows + f_idx, n * m)] = True
+            b = bins.gather(1, f_idx[:, None])[:, 0].int()
+            left = torch.where(b == 255, default_left[t][p], b <= split_bin[t][p])
+            p = torch.where(inner, 2 * p + 1 + (~left).long(), p)
+    return int(visits), int(touched[:-1].sum())
+
+
+def forest_checks(seed: int, dev, booster, eval_bins, train_bins) -> dict:
+    """Kernel 3 at two shapes: the fitted shape (the in-core booster's forest
+    over the 100k eval rows) and a serving shape (`serving_forest`: 256 trees
+    of depth 8 over the 1M training rows). At each, bit for bit against the
+    plain version and itself, timed beside its bound, the plain version and
+    one read of the same bins (their bytes summed as float32 words). The
+    bound counts the distinct bins the walks read, each once, plus margins
+    in and out and the five planes; the per-visit count of earlier runs
+    (one bin byte each internal node visited) is printed beside it. Returns
+    the fitted shape's row of the kernels line; restores the launch count."""
+    import torch
+
+    from repro_torch.kernels import forest as k_forest
+    from repro_torch.kernels import ref
+
+    forest = booster.packed_forest()
+    depth, m = forest.max_depth, eval_bins.shape[1]
+    lr = torch.tensor(forest.learning_rate, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    shapes = (
+        ("fitted", eval_bins, (forest.feature, forest.split_bin, forest.default_left,
+                               forest.is_leaf, lr * forest.leaf_value),
+         torch.full((eval_bins.shape[0],), forest.base_margin, device=dev), 20, 3),
+        ("serving", train_bins, serving_forest(seed, dev, 256, depth, m),
+         torch.randn(train_bins.shape[0], generator=gen, device=dev), 10, 1),
+    )
+    saved = k_forest.launches
+    row = None
+    for label, bins, planes, m_in, iters, plain_iters in shapes:
+        n, n_trees, n_total = bins.shape[0], *planes[0].shape
+
+        def kern():
+            return k_forest.predict_forest(bins, *planes, depth, m_in)
+
+        def plain():
+            return ref.predict_forest_bins(bins, *planes, depth, m_in)
+
+        got = kern()
+        if not torch.equal(got, plain()):
+            err = (got - plain()).abs().max().item()
+            raise SystemExit(f"forest kernel disagrees with its plain version at the {label} "
+                             f"shape: max err {err}")
+        if not torch.equal(got, kern()):
+            raise SystemExit(f"forest kernel is not deterministic at the {label} shape")
+        del got
+        visits, distinct = _forest_reads(bins, *planes[:4], depth)
+        rest = n * 8 + n_trees * n_total * 14  # margins in and out, the planes
+        bound, by = _bound(distinct + rest, n * n_trees)
+        per_visit, _ = _bound(visits + rest, n * n_trees)
+        # one read of the same bytes: torch sums uint8 through int64 at a
+        # fraction of the memory's rate, float32 words at nearly all of it
+        words = bins.view(-1)[: bins.numel() // 4 * 4].view(torch.float32)
+        t = dict(ms=_time_ms(kern, iters), device_ms=_time_ms(kern, iters, queued=True),
+                 plain_ms=_time_ms(plain, plain_iters),
+                 read_ms=_time_ms(lambda: words.sum(), iters, queued=True))
+        print(f"kernel predict_forest, {label} shape ({n} x {m} uint8, {n_trees} trees of "
+              f"depth {depth}, {visits} internal visits, {distinct} distinct bins read): "
+              f"== the plain version and itself (bitwise); ms={t['ms']:.4f} "
+              f"device_ms={t['device_ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+              f"bound_ms={bound:.4f} ({by}; a bin byte each internal visit instead: "
+              f"{per_visit:.4f}) reading the bins once (a sum of their bytes as float32 "
+              f"words) device_ms={t['read_ms']:.4f}")
+        if row is None:
+            row = dict(name="predict_forest", route="cuda",
+                       source="src/repro_torch/kernels/csrc/forest.cu",
+                       replaces="src/repro/kernels/forest.py:129", max_abs_err=0.0,
+                       ms=t["ms"], device_ms=t["device_ms"], plain_ms=t["plain_ms"],
+                       bound_ms=bound, bound_by=by, library_ms=None)
+        del planes, m_in
+    k_forest.launches = saved
+    return row
+
+
 def kernel_checks(seed: int, dev, dm, booster, X, Xe, per_tree_s: float) -> list[dict]:
     """Phase 3: each kernel against its plain version at the paths' shapes,
     timed beside its bound and a library call; restores the launch counts."""
@@ -1026,7 +1205,6 @@ def kernel_checks(seed: int, dev, dm, booster, X, Xe, per_tree_s: float) -> list
 
     from repro_torch.core.ellpack import Binner, bin_batch, rows_per_page
     from repro_torch.kernels import ellpack_bin as k_bin
-    from repro_torch.kernels import forest as k_forest
     from repro_torch.kernels import histogram as k_hist
     from repro_torch.kernels import partition as k_part
     from repro_torch.kernels import ref
@@ -1125,45 +1303,10 @@ def kernel_checks(seed: int, dev, dm, booster, X, Xe, per_tree_s: float) -> list
           f"torch.gather of one bin a row device_ms={gather_ms:.4f}")
     partition_level_times(bins, t0_tree)
     k_part.launches = saved
-    del bins, g, h, pos, level_pos
+    del g, h, pos, level_pos
 
-    forest = booster.packed_forest()
-    scaled = torch.tensor(forest.learning_rate, dtype=torch.float32, device=dev) * forest.leaf_value
-    f_args = (forest.feature, forest.split_bin, forest.default_left, forest.is_leaf, scaled,
-              forest.max_depth)
-    m_in = torch.full((eval_bins.shape[0],), forest.base_margin, device=dev)
-    saved = k_forest.launches
-    got = k_forest.predict_forest(eval_bins, *f_args, m_in)
-    want = ref.predict_forest_bins(eval_bins, *f_args, m_in)
-    if not torch.equal(got, want):
-        err = (got - want).abs().max().item()
-        raise SystemExit(f"forest kernel disagrees with its plain version: max err {err}")
-    steps = 0  # internal nodes each row visits: the bins this run's data needs
-    for t in range(forest.n_trees):
-        p = torch.zeros(eval_bins.shape[0], dtype=torch.int64, device=dev)
-        for _ in range(forest.max_depth):
-            inner = ~forest.is_leaf[t][p]
-            steps += int(inner.sum())
-            f_idx = forest.feature[t][p].long()
-            b = eval_bins.gather(1, f_idx[:, None])[:, 0].int()
-            left = torch.where(b == 255, forest.default_left[t][p], b <= forest.split_bin[t][p])
-            p = torch.where(inner, 2 * p + 1 + (~left).long(), p)
-    nt = eval_bins.shape[0]
-    fb, fb_by = _bound(steps + nt * 8 + forest.n_trees * forest.n_total * 14,
-                       nt * forest.n_trees)
-    results.append(dict(
-        name="predict_forest", route="cuda",
-        source="src/repro_torch/kernels/csrc/forest.cu",
-        replaces="src/repro/kernels/forest.py:129",
-        max_abs_err=0.0,
-        ms=_time_ms(lambda: k_forest.predict_forest(eval_bins, *f_args, m_in), 20),
-        device_ms=_time_ms(lambda: k_forest.predict_forest(eval_bins, *f_args, m_in), 20,
-                           queued=True),
-        plain_ms=_time_ms(lambda: ref.predict_forest_bins(eval_bins, *f_args, m_in), 3),
-        bound_ms=fb, bound_by=fb_by, library_ms=None,
-    ))
-    k_forest.launches = saved
-    del eval_bins, m_in
+    results.append(forest_checks(seed, dev, booster, eval_bins, bins))
+    del bins, eval_bins
 
     # binning: one 32 MiB page's rows in f32 (the page-creation shape of the
     # streaming path), and the eval rows in f64; each against its plain

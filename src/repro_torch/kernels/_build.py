@@ -49,7 +49,7 @@ SIGNATURES = {
     "partition": ("partition_launch", [_P, _I, _L, _I, _P, _P, _P, _P, _P, _I, _P, _L, _I, _P,
                                        _P]),
     "forest": ("forest_launch", [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
-                                 _P]),
+                                 _P, _P]),
     "ellpack_bin": ("ellpack_bin_launch", [_P, _I, _L, _I, _P, _I, _P, _P, _P]),
 }
 

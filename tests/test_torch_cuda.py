@@ -7,9 +7,11 @@ on a GPU machine without JAX:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Partition (with the next level's counts added into a buffer, also past
-the kernel's shared counters and node table), forest and binning must equal
-the plain versions bit for bit (binning also equals the host `bin_batch`,
-for float32 and float64 input, at edge tables 1 to 1,024 wide);
+the kernel's shared counters and node table), forest (in every part of its
+shared-memory plan: trees in chunks, records or rows from global memory,
+unaligned rows) and binning must equal the plain versions bit for bit
+(binning also equals the host `bin_batch`, for float32 and float64 input,
+at edge tables 1 to 1,024 wide);
 both histogram kernels equal their fixed-point plain versions
 (`ref.build_histogram_nodes_fixed`, `ref.build_histogram_fixed`) bit for bit,
 are allclose(rtol=1e-5, atol=1e-5) to their f32 plain versions (which sum
@@ -306,26 +308,96 @@ def test_partition_kernel_matches_plain(dev, dtype):
     assert torch.equal(got.cpu(), ref.partition_rows(bins, pos, *tree))
 
 
-@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
-def test_forest_kernel_matches_plain_bitwise(dev, dtype):
-    rng = np.random.default_rng(2)
-    n, m, n_trees, depth = 2500, 9, 6, 5
+def _forest_planes(rng, n_trees, depth, m, *, p_leaf=0.3, f_range=None, s_range=(0, 32)):
+    """Complete-layout planes, the last level all leaves, early leaves with
+    probability ``p_leaf`` at every other level (the root included)."""
     n_total = 2 ** (depth + 1) - 1
-    bins = _bins(rng, n, m, 32, dtype)
-    leaf = rng.random((n_trees, n_total)) < 0.3
+    leaf = rng.random((n_trees, n_total)) < p_leaf
     leaf[:, 2**depth - 1:] = True
-    forest = (
-        torch.from_numpy(rng.integers(0, m, (n_trees, n_total)).astype(np.int32)),
-        torch.from_numpy(rng.integers(0, 32, (n_trees, n_total)).astype(np.int32)),
+    lo, hi = f_range or (0, m)
+    return (
+        torch.from_numpy(rng.integers(lo, hi, (n_trees, n_total)).astype(np.int32)),
+        torch.from_numpy(rng.integers(*s_range, (n_trees, n_total)).astype(np.int32)),
         torch.from_numpy(rng.random((n_trees, n_total)) < 0.5),
         torch.from_numpy(leaf),
         torch.from_numpy(rng.normal(size=(n_trees, n_total)).astype(np.float32)),
     )
+
+
+# (n, m, n_trees, depth, max_depth, planes' keywords): each case reaches a
+# part of the kernel's shared-memory plan (csrc/forest.cu) in both bin types
+FOREST_CASES = {
+    "small": (2500, 9, 6, 5, 5, {}),
+    # 8,191 nodes: one tree a chunk, two buffers
+    "depth12": (700, 30, 5, 12, 12, {}),
+    # 70 trees cross chunks of 12 (uint8, rows in shared memory) and of 16
+    # (int32, rows in global memory) at the paper width; 1,000 rows end
+    # inside a 256-row tile
+    "trees_off_chunk": (1000, 500, 70, 8, 8, {"s_range": (0, 255)}),
+    "rows_off_tile": (257, 40, 3, 4, 4, {}),
+    # 32,767 nodes do not fit in shared memory: records from global memory
+    "depth14": (300, 20, 2, 14, 14, {}),
+    # rows wider than shared memory beside a tree: bins from global memory
+    "wide_rows": (600, 1000, 5, 6, 6, {}),
+    "max_depth0": (500, 9, 4, 3, 0, {}),
+    "early_leaves": (800, 17, 9, 6, 6, {"p_leaf": 0.5}),
+    # features below 0 and at or past m clamp; split bins outside [0, 254]
+    "out_of_range": (900, 11, 7, 5, 5, {"f_range": (-11, 22), "s_range": (-20, 300)}),
+}
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
+@pytest.mark.parametrize("case", list(FOREST_CASES))
+def test_forest_kernel_matches_plain_bitwise(dev, dtype, case):
+    n, m, n_trees, depth, max_depth, kw = FOREST_CASES[case]
+    rng = np.random.default_rng(2)
+    bins = _bins(rng, n, m, 32 if "s_range" not in kw else 255, dtype)
+    forest = _forest_planes(rng, n_trees, depth, m, **kw)
     margin_in = torch.from_numpy(rng.normal(size=n).astype(np.float32))
-    got = k_forest.predict_forest(
-        bins.to(dev), *(t.to(dev) for t in forest), depth, margin_in.to(dev)
-    )
-    assert torch.equal(got.cpu(), ref.predict_forest_bins(bins, *forest, depth, margin_in))
+    args = (bins.to(dev), *(t.to(dev) for t in forest), max_depth, margin_in.to(dev))
+    got = k_forest.predict_forest(*args)
+    assert torch.equal(got.cpu(), ref.predict_forest_bins(bins, *forest, max_depth, margin_in))
+    assert torch.equal(got, k_forest.predict_forest(*args))
+
+
+@pytest.mark.parametrize("offset", [1, 4])
+def test_forest_kernel_unaligned_rows(dev, offset):
+    # a view whose rows start off a 16-byte boundary: the tile is copied a
+    # word (offset 4) or a byte (offset 1) at a time
+    rng = np.random.default_rng(offset)
+    n, m = 700, 24
+    flat = torch.zeros(n * m + offset, dtype=torch.uint8)
+    flat[offset:] = _bins(rng, n, m, 32, np.uint8).reshape(-1)
+    forest = _forest_planes(rng, 5, 5, m)
+    margin_in = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    bins = flat.to(dev)[offset:].view(n, m)
+    assert bins.data_ptr() % 16 == offset
+    got = k_forest.predict_forest(bins, *(t.to(dev) for t in forest), 5, margin_in.to(dev))
+    want = ref.predict_forest_bins(flat[offset:].view(n, m), *forest, 5, margin_in)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_forest_kernel_rejects_what_a_record_cannot_hold(dev):
+    planes = tuple(t.to(dev) for t in _forest_planes(np.random.default_rng(0), 2, 3, 4))
+    for dtype, limit in k_forest.MAX_FEATURES.items():
+        ok = torch.empty((0, limit), dtype=dtype, device=dev)  # zero rows: no bytes
+        assert k_forest.predict_forest(ok, *planes, 3, torch.empty(0, device=dev)).shape == (0,)
+        wide = torch.empty((0, limit + 1), dtype=dtype, device=dev)
+        with pytest.raises(ValueError, match="feature"):
+            k_forest.predict_forest(wide, *planes, 3, torch.empty(0, device=dev))
+        # a tree of more nodes than the record's child field holds (no trees,
+        # so the planes hold no bytes)
+        n_nodes = k_forest.MAX_NODES[dtype] + 1
+        empty = tuple(torch.zeros((0, n_nodes), dtype=t.dtype, device=dev) for t in planes)
+        bins = torch.zeros((4, 2), dtype=dtype, device=dev)
+        with pytest.raises(ValueError, match="nodes"):
+            k_forest.predict_forest(bins, *empty, 3, torch.zeros(4, device=dev))
+    bins = torch.zeros((4, 2), dtype=torch.uint8, device=dev)
+    with pytest.raises(TypeError, match="dtype"):
+        k_forest.predict_forest(bins, *planes[:4], planes[4].double(), 3,
+                                torch.zeros(4, device=dev))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        k_forest.predict_forest(bins.cpu(), *(t.cpu() for t in planes), 3, torch.zeros(4))
 
 
 def test_wrappers_reject_bad_arguments(dev):

@@ -132,7 +132,12 @@ def _forest(rng, n_trees, depth, m, n_bins):
     return feat, sb, dl, leaf, lv
 
 
-@pytest.mark.parametrize("n,m,n_trees,depth", [(1, 2, 1, 1), (100, 5, 4, 3), (300, 9, 7, 4)])
+@pytest.mark.parametrize("n,m,n_trees,depth", [
+    (1, 2, 1, 1), (100, 5, 4, 3), (300, 9, 7, 4),
+    # the CUDA kernel's shapes past one chunk of shared memory: a depth-12
+    # tree (8,191 nodes), and 33 trees, more than a chunk at the paper width
+    (5, 7, 2, 12), (40, 6, 33, 4),
+])
 def test_forest_plain_matches_reference_bitwise(n, m, n_trees, depth):
     rng = np.random.default_rng(n + depth)
     n_bins = 16
