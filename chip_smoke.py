@@ -57,9 +57,31 @@ Phases, each of which fails the run on error:
      positions), the page-summed histogram against the
      plain histogram of the concatenated pages and bit for bit against the
      fixed-point pages summed with ``add_``;
+  6b. drives the sampled path (Alg. 7) on phase 6's 15 pages, reopened with
+     ``PagedDMatrix``: 4 trees under ``ExecutionPolicy(mode="auto")`` with
+     phase 6's budget and ``SamplingConfig(method="mvs", f=0.1)`` (the
+     paper config's ``sampling_f``); requires the ``sampled`` decision at
+     f = 0.1, histogram and partition launched once a level of each tree
+     (the compacted page is built in core), every tree's kept rows within
+     the compacted page's capacity, the fit's peak above its start within
+     the budget, and eval AUC within 0.01 of phase 6's streaming fit after
+     4 trees. Prints seconds a tree split into the host compaction pass
+     (sampling, the host gather, the stage), the tree build and the staged
+     margin pass; host-to-device GB a tree beside streaming's; the peak
+     beside the byte model's sampled need and the budget; kept rows a tree.
+     Then, on the first tree's compacted page with its padding rows, at each
+     level of that tree (its real positions and build sets), the histogram
+     bit for bit against the fixed-point plain version and the partition
+     with its counts against the plain version;
   7. fits twice more by streaming (3 trees, a 200k-row subset, the page
      cache reopened through ``PagedDMatrix``, staging depth 2) and requires
-     identical trees;
+     identical trees; then twice by sampling (MVS, f = 0.1, the same pages)
+     and twice in core with MVS on the same rows, and requires identical
+     trees and margins. Before them, the MVS threshold μ, the suffix sums
+     behind it and an MVS draw from one generator seed must give the same
+     bits in 30 calls on 1M random values (a 1-D ``torch.cumsum``, whose
+     float sums move from call to call on the card, is counted beside them
+     for the record);
   8. drives the elastic multi-worker path at the same width:
      ``prepare_shards`` of 400k fresh rows into 2 shards of 3 x 32 MiB pages
      (binned on the card), then ``ElasticTrainer(device="cuda")`` with 2
@@ -75,8 +97,8 @@ Phases, each of which fails the run on error:
      build nodes, and chunked split
      evaluation of a 128-node level against one chunk.
 
-The streaming fit's device-memory peak above its start must stay within the
-budget its policy decided under (phase 6). The card's compute mode must be
+The streaming and sampled fits' device-memory peaks above their starts must
+stay within the budget their policy decided under (phases 6 and 6b). The card's compute mode must be
 Default: the elastic phase runs three processes on it.
 
 It prints a JSON line of per-kernel numbers, the card's name and power limit
@@ -101,6 +123,8 @@ FP32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 FP64_OPS_PER_S = 34e12  # H100 SXM f64 outside the tensor cores
 PAGE_BYTES = 32 * 1024 * 1024
 AUC_TOLERANCE = 1e-3  # streaming vs in-core eval AUC after 4 trees
+SAMPLED_AUC_TOLERANCE = 0.01  # sampled (f = 0.1) vs streaming eval AUC after 4 trees
+SAMPLING_F = 0.1  # the paper config's sampling_f (configs/xgb_paper.py, Table 1's ratio)
 SPIN_CYCLES = 40_000_000  # ~20 ms of the SM clock (up to 1.98 GHz)
 
 
@@ -303,6 +327,7 @@ def main(argv=None) -> int:
         st = sb.stats
         n_pages = sdm.n_pages
         stream_loop_s = sb.eval_history[-1].elapsed_s
+        n_stream = len(sb.trees)
         stream_auc = sb.eval_history[n_stream - 1].value
         core_auc = booster.eval_history[n_stream - 1].value
         print(
@@ -382,6 +407,12 @@ def main(argv=None) -> int:
         print(f"page fetch (page 0, {len(blob)} bytes): read={read_s * 1e3:.3f} ms "
               f"crc32={crc_s * 1e3:.3f} ms decode={decode_s * 1e3:.3f} ms")
 
+        # 6b. the sampled path (Alg. 7) on the same pages ----------------------
+        sampled_launches = sampled_phase(
+            dev, cache, dict(stream_params), budget, Xe, ye, stream_auc,
+            st.host_to_device_bytes / n_stream, stream_loop_s / n_stream, node_path,
+        )
+
     # 7. determinism of the streaming path ------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pages_") as cache:
         sub_batches = [(X[i : i + batch_rows], y[i : i + batch_rows]) for i in range(0, sub, batch_rows)]
@@ -393,6 +424,7 @@ def main(argv=None) -> int:
             .fit(PagedDMatrix(cache))
             for _ in range(2)
         ]
+        sampled_determinism(dev, cache, X[:sub], y[:sub], Xe, booster.cuts, params)
     for a, b in zip(det[0].trees, det[1].trees):
         if not all(torch.equal(u, v) for u, v in zip(a, b)):
             raise SystemExit("two streaming fits on the same pages grew different trees")
@@ -400,15 +432,17 @@ def main(argv=None) -> int:
         raise SystemExit("two streaming fits on the same pages gave different margins")
     print(f"determinism: two streaming fits on {sub} rows ({det[0].pages.n_pages} pages, "
           f"staging_depth=2) grew {len(det[0].trees)} identical trees")
+    del det
 
     # 8. elastic multi-worker path -------------------------------------------
     elastic_launches, window_row = elastic_phase(args.seed, dev, params, elastic_path)
     results.insert(1, window_row)
 
-    # launches: the three paths' runs, each counted from zero (per path above)
+    # launches: the four paths' runs, each counted from zero (per path above)
     for r in results:
         r["launches"] = sum(
-            path[r["name"]] for path in (in_core_launches, stream_launches, elastic_launches)
+            path[r["name"]]
+            for path in (in_core_launches, stream_launches, sampled_launches, elastic_launches)
         )
     print(json.dumps({"kernels": results}))
     smi = subprocess.run(
@@ -420,6 +454,249 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
     }}))
     return 0
+
+
+def sampled_phase(dev, cache: str, params: dict, budget: int, Xe, ye, stream_auc: float,
+                  stream_h2d_per_tree: float, stream_per_tree_s: float, path_kernels) -> dict:
+    """Phase 6b: the sampled path (see the module docstring). The booster
+    runs as a user calls it; the script wraps, from outside, its sampler
+    (kept rows), its tree builder (seconds; a host copy of the first tree's
+    compacted page, gradients included) and its two per-tree steps (seconds)
+    to split a tree's time. Returns the path's launch counts."""
+    import numpy as np
+    import torch
+
+    import repro_torch.core.booster as booster_mod
+    from repro_torch.core.booster import GradientBooster
+    from repro_torch.core.policy import ExecutionPolicy
+    from repro_torch.core.sampling import SamplingConfig
+    from repro_torch.data.dmatrix import PagedDMatrix
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    cfg = SamplingConfig(method="mvs", f=SAMPLING_F)
+    n_trees, depth = params["n_estimators"], params["max_depth"]
+    sdm = PagedDMatrix(cache)
+    sb = GradientBooster(device=dev, policy=ExecutionPolicy(mode="auto",
+                         memory_budget_bytes=budget), **params, sampling=cfg)
+    kept, spans, first = [], {"compact": [], "build": [], "margins": [], "copy": []}, {}
+    sample, grow_tree = booster_mod.sample, booster_mod.grow_tree
+    build_sampled, update_margins = sb._build_tree_sampled, sb._update_margins
+
+    def timed(label, fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spans[label].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def counted_sample(*a):
+        keep, w = sample(*a)
+        kept.append(int(keep.sum()))
+        return keep, w
+
+    def grow_and_copy(bins, g, h, *a, **k):
+        res = timed("build", grow_tree)(bins, g, h, *a, **k)
+        t0 = time.perf_counter()
+        if not first:  # host copies: the fit's device memory is not held longer
+            first.update(bins=bins.cpu(), g=g.cpu(), h=h.cpu())
+        spans["copy"].append(time.perf_counter() - t0)
+        return res
+
+    booster_mod.sample, booster_mod.grow_tree = counted_sample, grow_and_copy
+    sb._build_tree_sampled = timed("compact", build_sampled)
+    sb._update_margins = timed("margins", update_margins)
+    try:
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        sb.fit(sdm, eval_set=(Xe, ye))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        margin = sb.predict_margin(Xe)
+        launches = launch_counts()
+    finally:
+        booster_mod.sample, booster_mod.grow_tree = sample, grow_tree
+        del sb._build_tree_sampled, sb._update_margins
+    n = sdm.n_rows
+    capacity = sb._sampled_capacity(n, cfg)
+    model = sb.decision_.model
+    # the compaction pass: the sampler, the host gather and the stage (the
+    # wrapped build and the host copy of the first page taken out)
+    compact = [c - b - k for c, b, k in zip(spans["compact"], spans["build"], spans["copy"])]
+    loop_s = sb.eval_history[-1].elapsed_s
+    st = sb.stats
+    auc_s = sb.eval_history[n_trees - 1].value
+    print(f"sampled path: decision={sb.decision_.mode} f={sb.decision_.sampling_f} "
+          f"({sb.decision_.reason}) trees={len(sb.trees)} fit={fit_s:.3f} s "
+          f"per_tree={loop_s / n_trees:.4f} s (streaming {stream_per_tree_s:.4f} s): "
+          f"compaction pass {np.mean(compact):.4f} s, tree build {np.mean(spans['build']):.4f} s, "
+          f"staged margin pass {np.mean(spans['margins']):.4f} s a tree (per tree: compaction "
+          f"{[round(t, 4) for t in compact]}, build {[round(t, 4) for t in spans['build']]}, "
+          f"margins {[round(t, 4) for t in spans['margins']]})")
+    print(f"sampled path: h2d_GB a tree={st.host_to_device_bytes / n_trees / 1e9:.6f} "
+          f"(streaming {stream_h2d_per_tree / 1e9:.6f}) "
+          f"disk_read_GB={st.disk_read_bytes / 1e9:.6f} "
+          f"fetch_s={st.stream_fetch_seconds:.6f} stage_s={st.stream_stage_seconds:.6f} "
+          f"compute_s={st.stream_compute_seconds:.6f} wall_s={st.stream_wall_seconds:.6f}; "
+          f"kept rows a tree {kept} (capacity {capacity}); compacted page "
+          f"{capacity} x {sdm.num_features} uint8")
+    print(f"sampled memory: peak above start {peak} B, byte model's sampled need "
+          f"{model.sampled_bytes(n, SAMPLING_F)} B, budget {budget} B: within the budget "
+          f"{peak <= budget}")
+    print(f"sampled eval_auc after {n_trees} trees={auc_s:.6f} streaming={stream_auc:.6f} "
+          f"|diff|={abs(auc_s - stream_auc):.6f}")
+    print(f"sampled path launches: {json.dumps(launches)}")
+    if not (sb.decision_.mode == "sampled" and sb.decision_.sampling_f == SAMPLING_F):
+        raise SystemExit(f"the sampled path decided {sb.decision_}")
+    if not launches["build_histogram_nodes"] == launches["partition_rows"] == n_trees * depth:
+        raise SystemExit(f"histogram/partition not launched once a level of each tree: "
+                         f"{launches}, expected {n_trees * depth}")
+    if not all(launches[k] > 0 for k in path_kernels):
+        raise SystemExit(f"a kernel of the sampled path was never launched: {launches}")
+    if len(kept) != n_trees or max(kept) > capacity:
+        raise SystemExit(f"kept rows {kept} past the compacted page's {capacity} rows")
+    if peak > budget:
+        raise SystemExit(f"the sampled fit peaked {peak} B above its start, over the "
+                         f"{budget} B budget it decided under")
+    if abs(auc_s - stream_auc) > SAMPLED_AUC_TOLERANCE:
+        raise SystemExit(f"sampled AUC {auc_s} vs streaming {stream_auc}")
+    if not (np.all(np.isfinite(margin)) and margin.shape == (len(Xe),)
+            and bool(torch.isfinite(sb.margins_).all())):
+        raise SystemExit("sampled path output wrong")
+    compacted_page_checks(first, sb.trees[0], kept[0])
+    return launches
+
+
+def compacted_page_checks(first: dict, tree, n_kept: int) -> None:
+    """Kernels 1 and 2 on the first tree's compacted page (its kept rows,
+    then zero-gradient padding rows with bins 0), at each level of that
+    tree: its real positions (the plain partition by the tree) and the build
+    set the histogram store plans. The histogram must equal the fixed-point
+    plain version bit for bit (its distance from the f32 plain version,
+    which sums in another order, is printed), the partition with its counts
+    the plain version. Restores the launch counts."""
+    import torch
+
+    from repro_torch.core.histcache import level_row_counts, plan_level
+    from repro_torch.kernels import histogram as k_hist
+    from repro_torch.kernels import partition as k_part
+    from repro_torch.kernels import ref
+
+    dev = tree.feature.device
+    bins, g, h = (first[k].to(dev) for k in ("bins", "g", "h"))
+    n, m = bins.shape
+    part_args = (tree.feature, tree.split_bin, tree.default_left, tree.is_leaf)
+    saved = k_hist.launches, k_part.launches
+    pos = torch.zeros(n, dtype=torch.int32, device=dev)
+    err, rel, lines = 0.0, 0.0, []
+    for depth in range(tree.max_depth):
+        count = 1 << depth
+        if depth == 0:
+            nodes = torch.zeros(1, dtype=torch.int32, device=dev)
+        else:
+            _, build_left = plan_level(count, level_row_counts(pos, count - 1, count))
+            nodes = (count - 1 + 2 * torch.arange(count // 2, dtype=torch.int32, device=dev)
+                     + (~build_left).to(torch.int32))
+        got = k_hist.build_histogram_nodes(bins, g, h, pos, nodes, 255)
+        if not torch.equal(got, ref.build_histogram_nodes_fixed(bins, g, h, pos, nodes, 255)):
+            raise SystemExit(f"histogram kernel differs from the fixed-point plain version on "
+                             f"the compacted page at level {depth}")
+        # the f32 plain version sums in another order: its distance, printed
+        want = ref.build_histogram_nodes(bins, g, h, pos, nodes, 255)
+        diff = (got - want).abs()
+        err = max(err, diff.max().item())
+        rel = max(rel, (diff / want.abs().clamp(min=1.0)).max().item())
+        window = (2 * count - 1, 2 * count)
+        got_c, want_c = (torch.zeros(2 * count, dtype=torch.int32, device=dev) for _ in range(2))
+        moved = k_part.partition_rows(bins, pos, *part_args, window, got_c)
+        new = ref.partition_rows(bins, pos, *part_args, window, want_c)
+        if not (torch.equal(moved, new) and torch.equal(got_c, want_c)):
+            raise SystemExit(f"partition kernel disagrees with its plain version on the "
+                             f"compacted page at level {depth}")
+        if depth == tree.max_depth - 1:
+            def k1():
+                return k_hist.build_histogram_nodes(bins, g, h, pos, nodes, 255)
+            lines.append(f"level {depth} ({nodes.shape[0]} build nodes) kernel 1 "
+                         f"ms={_time_ms(k1, 10):.4f} device_ms={_time_ms(k1, 10, queued=True):.4f}")
+        del got, want
+        pos = new
+    k_hist.launches, k_part.launches = saved
+    print(f"sampled kernels on the first tree's compacted page ({n} x {m} uint8, {n_kept} kept "
+          f"rows, {n - n_kept} padding rows), each of {tree.max_depth} levels: histogram == the "
+          f"fixed-point plain version (bitwise), vs the f32 plain version max_abs_err={err:.3g} "
+          f"(relative to max(|plain|, 1): {rel:.3g}); partition positions and counts == the "
+          f"plain version; "
+          + "; ".join(lines))
+
+
+def sampled_determinism(dev, cache: str, X, y, Xe, cuts, params: dict) -> None:
+    """Phase 7's sampled half: two sampled fits (MVS, f = 0.1, 3 trees) on
+    the subset's pages, and two in-core MVS fits on the same rows, must grow
+    identical trees and margins."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.booster import GradientBooster
+    from repro_torch.core.policy import ExecutionPolicy
+    from repro_torch.core.sampling import SamplingConfig
+    from repro_torch.data.dmatrix import PagedDMatrix
+
+    threshold_repeatability(dev, 1_000_000)
+    kw = dict(params, n_estimators=3, sampling=SamplingConfig(method="mvs", f=SAMPLING_F))
+    paged = [GradientBooster(device=dev, policy=ExecutionPolicy(mode="out_of_core"), **kw)
+             .fit(PagedDMatrix(cache)) for _ in range(2)]
+    core = [GradientBooster(device=dev, **kw).fit(X, y, cuts=cuts) for _ in range(2)]
+    for label, (a, b) in (("sampled", paged), ("in-core MVS", core)):
+        if not (len(a.trees) == len(b.trees) == 3 and all(
+            torch.equal(u, v) for ta, tb in zip(a.trees, b.trees) for u, v in zip(ta, tb)
+        )):
+            raise SystemExit(f"two {label} fits on the same rows grew different trees")
+        if not np.array_equal(a.predict_margin(Xe), b.predict_margin(Xe)):
+            raise SystemExit(f"two {label} fits on the same rows predict different margins")
+    if paged[0].decision_.mode != "sampled" or core[0].decision_.mode != "in_core":
+        raise SystemExit(f"determinism fits decided {paged[0].decision_.mode}, "
+                         f"{core[0].decision_.mode}")
+    if not torch.equal(paged[0].margins_, paged[1].margins_):
+        raise SystemExit("two sampled fits on the same pages gave different training margins")
+    print(f"determinism: two sampled fits (MVS, f={SAMPLING_F}) on {len(X)} rows "
+          f"({paged[0].pages.n_pages} pages) grew 3 identical trees and equal margins; two "
+          f"in-core MVS fits on the same rows grew 3 identical trees")
+
+
+def threshold_repeatability(dev, n: int, calls: int = 30) -> None:
+    """μ fixes every MVS weight of a round: its suffix sums (`prefix_sums`),
+    μ itself and a whole MVS draw from one generator seed must give the same
+    bits on every call. A 1-D ``torch.cumsum`` of the same values is counted
+    beside them."""
+    import torch
+
+    from repro_torch.core.sampling import SamplingConfig, mvs_threshold, prefix_sums, sample
+
+    def gen(seed: int) -> torch.Generator:
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    g_hat = torch.rand(n, generator=gen(n), device=dev).square()
+    g, h = torch.randn(n, generator=gen(n + 1), device=dev), g_hat + 0.01
+    cfg = SamplingConfig(method="mvs", f=SAMPLING_F)
+
+    def distinct(fn) -> int:
+        return len({fn().cpu().numpy().tobytes() for _ in range(calls)})
+
+    n_scan = distinct(lambda: prefix_sums(g_hat))
+    n_mu = distinct(lambda: mvs_threshold(g_hat, SAMPLING_F * n))
+    n_draw = distinct(lambda: torch.cat([t.view(torch.uint8) for t in sample(gen(7), g, h, cfg)]))
+    n_cumsum = distinct(lambda: torch.cumsum(g_hat, 0))
+    print(f"MVS threshold on {n} values, {calls} calls: prefix_sums gave {n_scan} distinct "
+          f"results, mvs_threshold {n_mu}, an MVS draw (keep, weight) {n_draw}; "
+          f"a 1-D torch.cumsum gave {n_cumsum}")
+    if n_scan != 1 or n_mu != 1 or n_draw != 1:
+        raise SystemExit("the MVS threshold or draw differs from call to call")
 
 
 def elastic_phase(seed: int, dev, params: dict, path_kernels) -> tuple[dict, dict]:

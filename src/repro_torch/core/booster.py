@@ -11,7 +11,17 @@ model, and the decision lands on ``decision_``:
   out_of_core  the pages stream through `PageStream` (disk -> pinned host ->
                device), one pass per tree level for the histogram and one
                for the repartition (Alg. 6); the margins are updated from
-               the final row positions, without another pass.
+               the final row positions, without another pass;
+  sampled      gradient-based sampling (`core.sampling`: SGB, GOSS, MVS)
+               picks rows each round; one host pass over the pages gathers
+               them into one compacted page, staged once, and the tree is
+               built on it in core; one staged pass per tree then updates
+               the margins (Alg. 7).
+
+In core, sampling multiplies the gradients by ``where(keep, weight, 0)``,
+as the reference does. Each round draws from a `torch.Generator` on the
+booster's device seeded from ``(params.seed, iteration)``, so a resumed fit
+draws the masks the uninterrupted fit drew.
 
 ``predict`` bins raw rows on the device (the CUDA binning kernel) and goes
 through `PackedForest` and the CUDA forest kernel.
@@ -23,9 +33,8 @@ elastic trainer (`repro_torch.distributed`).
 
 Everything runs on the CUDA device unless the caller passes
 ``device="cpu"``, which runs the plain PyTorch versions of the kernels on the
-host; asking for CUDA where there is none raises. Sampled training (Alg. 7),
-best-first growth and the budgeted histogram store are queued and raise
-`NotImplementedError`.
+host; asking for CUDA where there is none raises. Best-first growth and
+the budgeted histogram store are queued and raise `NotImplementedError`.
 
 Checkpoints use the reference's format (``model.npz``, ``booster.json``,
 ``manifest.json`` with CRC32), so a forest saved by `repro` loads here and
@@ -45,9 +54,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import objectives as obj_lib
-from repro_torch.core.ellpack import Binner
+from repro_torch.core.ellpack import Binner, EllpackPage
 from repro_torch.core.histcache import HistogramStore
-from repro_torch.core.policy import ExecutionDecision, ExecutionPolicy
+from repro_torch.core.policy import ExecutionDecision, ExecutionPolicy, sampling_requested
 from repro_torch.core.quantile import HistogramCuts
 from repro_torch.core.sampling import SamplingConfig, sample
 from repro_torch.core.split import SplitParams
@@ -173,8 +182,8 @@ class EvalRecord:
 
 
 class GradientBooster:
-    """XGBoost-like estimator over the port's tree builders (in-core and
-    out-of-core streaming)."""
+    """XGBoost-like estimator over the port's tree builders (in-core,
+    out-of-core streaming and sampled)."""
 
     def __init__(
         self,
@@ -238,15 +247,19 @@ class GradientBooster:
         dm = as_dmatrix(data, y, max_bin=p.max_bin, cuts=cuts, device=self.device)
         decision = self.policy.decide(dm, p)
         self.decision_ = decision
-        if decision.mode == "sampled":
-            raise NotImplementedError(
-                f"the policy chose 'sampled' ({decision.reason}); gradient-based "
-                "sampling (Alg. 7) is not ported yet (ROADMAP queue 1 item 6b)"
-            )
         self.cuts = dm.cuts
         if decision.mode == "in_core":
             return self._fit_in_core(dm, eval_set, eval_metric, verbose, start_iteration)
-        return self._fit_external(dm, eval_set, eval_metric, verbose, start_iteration)
+        return self._fit_external(dm, decision, eval_set, eval_metric, verbose, start_iteration)
+
+    def _round_generator(self, iteration: int) -> torch.Generator:
+        """The sampling draws of one boosting round: a generator on the
+        booster's device seeded from (seed, iteration), so the draws depend
+        on nothing a resume loses. The two are mixed by a `SeedSequence`:
+        the CPU generator keeps only the seed's low 32 bits."""
+        mixed = np.random.SeedSequence([self.params.seed % (1 << 64), iteration])
+        seed = int(mixed.generate_state(1, np.uint64)[0])
+        return torch.Generator(device=self.device).manual_seed(seed)
 
     def _eval_state(self, eval_set, cuts: HistogramCuts):
         """(device bins, labels, margins replaying the held trees) of the eval
@@ -268,8 +281,8 @@ class GradientBooster:
     def _boost(
         self, boost_round, eval_set, cuts, eval_metric, verbose, start_iteration
     ) -> None:
-        """The boosting loop shared by both engines: per round from
-        ``start_iteration`` on, a tree from ``boost_round()`` (which also
+        """The boosting loop shared by the engines: per round ``it`` from
+        ``start_iteration`` on, a tree from ``boost_round(it)`` (which also
         updates the training margins), then the checkpoint cadence, eval and
         early stopping."""
         p, pol = self.params, self.policy
@@ -278,7 +291,7 @@ class GradientBooster:
         t0 = time.perf_counter()
         best_metric, best_iter = None, -1
         for it in range(start_iteration, p.n_estimators):
-            tree = boost_round()
+            tree = boost_round(it)
             self.trees.append(tree)
             if pol.checkpoint_every and pol.checkpoint_dir and (it + 1) % pol.checkpoint_every == 0:
                 self.save(pol.checkpoint_dir)
@@ -328,11 +341,13 @@ class GradientBooster:
         for tree in self.trees:
             margin = margin + p.learning_rate * predict_tree_bins(tree, bins, p.max_depth)
 
-        def boost_round() -> TreeArrays:
+        def boost_round(it: int) -> TreeArrays:
             nonlocal margin
-            g, h = sample(*self.objective.grad_hess(margin, labels_t), p.sampling)
+            g, h = self.objective.grad_hess(margin, labels_t)
+            keep, w = sample(self._round_generator(it), g, h, p.sampling)
+            scale = torch.where(keep, w, 0.0)
             res = grow_tree(
-                bins, g, h, n_bins, bin_valid, tp,
+                bins, g * scale, h * scale, n_bins, bin_valid, tp,
                 cut_values=dm.cuts.values, cut_ptrs=dm.cuts.ptrs,
                 hist_cache=self.hist_cache,
             )
@@ -355,7 +370,7 @@ class GradientBooster:
         )
 
     def _fit_external(
-        self, dm, eval_set, eval_metric, verbose, start_iteration
+        self, dm, decision, eval_set, eval_metric, verbose, start_iteration
     ) -> "GradientBooster":
         from repro_torch.pipeline import DevicePageCache
 
@@ -378,20 +393,83 @@ class GradientBooster:
             self.margins_ = torch.full(
                 (pages.n_rows,), self.base_margin_, dtype=torch.float32, device=dev
             )
-        cache_pages = self.policy.device_cache_pages or 0
+        use_sampling = decision.mode == "sampled"
+        sampling_cfg = p.sampling
+        if use_sampling and not sampling_requested(p.sampling):
+            # policy-chosen fraction: the paper's MVS default at the largest
+            # f whose compacted page fits the budget
+            sampling_cfg = SamplingConfig(method="mvs", f=decision.sampling_f or 0.5)
+        cache_pages = self.policy.device_cache_pages
+        if cache_pages is None:
+            # auto: cache only when the whole page set fits (a sequential LRU
+            # scan over more pages than capacity evicts every page right
+            # before its reuse), and only on the sampled path, whose margin
+            # pass revisits each page once a tree
+            cache_pages = pages.n_pages if (use_sampling and pages.n_pages <= 8) else 0
         self._device_cache = DevicePageCache(cache_pages) if cache_pages > 0 else None
 
-        def boost_round() -> TreeArrays:
-            g, h = sample(*self.objective.grad_hess(self.margins_, labels_t), p.sampling)
-            res = self._build_tree_streaming(g, h, n_bins, bin_valid, tp, dm.cuts)
-            # eager multiply then add, as the reference (no fused FMA)
-            leaf = res.tree.leaf_value[res.positions.to(torch.int64)]
-            self.margins_ = self.margins_ + p.learning_rate * leaf
+        def boost_round(it: int) -> TreeArrays:
+            g, h = self.objective.grad_hess(self.margins_, labels_t)
+            if use_sampling:
+                res = self._build_tree_sampled(
+                    self._round_generator(it), g, h, n_bins, bin_valid, tp, dm.cuts,
+                    sampling_cfg,
+                )
+            else:
+                res = self._build_tree_streaming(g, h, n_bins, bin_valid, tp, dm.cuts)
+            self._update_margins(res, tp)
             return res.tree
 
         self._boost(boost_round, eval_set, dm.cuts, eval_metric, verbose, start_iteration)
         return self
 
+    # -------------------------------------------------- Alg. 7 (sampled path)
+    def _sampled_capacity(self, n_rows: int, sampling_cfg: SamplingConfig) -> int:
+        """Rows of the compacted page: the expected kept rows with a margin
+        for the spread of Bernoulli sampling, rounded up to 1024 (the
+        reference's static shape)."""
+        f = sampling_cfg.f if sampling_cfg.method != "goss" else (
+            sampling_cfg.goss_a + sampling_cfg.goss_b
+        )
+        cap = int(n_rows * min(1.0, f * 1.25)) + 256
+        return min(n_rows, -(-cap // 1024) * 1024)
+
+    def _build_tree_sampled(
+        self, generator, g, h, n_bins, bin_valid, tp, cuts, sampling_cfg
+    ) -> TreeBuildResult:
+        """One tree on the compacted page of this round's sampled rows."""
+        keep, w = sample(generator, g, h, sampling_cfg)
+        capacity = self._sampled_capacity(self.pages.n_rows, sampling_cfg)
+        # kept rows in row order; past the capacity (the extreme tail) the
+        # last ones are dropped
+        sel = torch.nonzero(keep).squeeze(1)[:capacity]
+        n_sel = sel.shape[0]
+        # zero-gradient padding rows up to the capacity: they reach the
+        # histograms with g = h = 0 and count in the row counts
+        g_c = torch.zeros(capacity, dtype=torch.float32, device=g.device)
+        h_c = torch.zeros_like(g_c)
+        g_c[:n_sel] = (g * w)[sel]
+        h_c[:n_sel] = (h * w)[sel]
+
+        # Compact: gather the sampled rows of every page (one host pass, the
+        # prefetcher overlapping disk reads; nothing staged), padding rows
+        # with bins 0
+        sel_np = sel.cpu().numpy()
+        bins_np = np.zeros((capacity, self.pages.num_features), np.uint8)
+        for _, page in self._stream().iter_host():
+            lo = np.searchsorted(sel_np, page.row_offset, side="left")
+            hi = np.searchsorted(sel_np, page.row_offset + page.n_rows, side="left")
+            if hi > lo:
+                bins_np[lo:hi] = page.bins[sel_np[lo:hi] - page.row_offset]
+        bins_c = self.pages.stage(EllpackPage(bins_np, 0), self.device)
+        res = grow_tree(
+            bins_c, g_c, h_c, n_bins, bin_valid, tp,
+            cut_values=cuts.values, cut_ptrs=cuts.ptrs, hist_cache=self.hist_cache,
+        )
+        # positions only cover the sampled rows: the margin update streams
+        return TreeBuildResult(tree=res.tree, positions=None)
+
+    # ----------------------------------------------- Alg. 6 (streaming path)
     def _build_tree_streaming(self, g, h, n_bins, bin_valid, tp, cuts) -> TreeBuildResult:
         from repro_torch.core.outofcore import build_tree_paged
 
@@ -403,6 +481,21 @@ class GradientBooster:
         # final positions point at leaves: the margin update needs no pass
         pos = torch.cat([positions[i] for i in range(len(extents))])
         return TreeBuildResult(tree=tree, positions=pos)
+
+    def _update_margins(self, res: TreeBuildResult, tp) -> None:
+        """Add the tree's learning-rate-scaled leaves to the training margins,
+        an eager multiply then an add, as the reference (no fused FMA): from
+        the final positions of a streamed tree, else by one staged pass of
+        the pages."""
+        lr = self.params.learning_rate
+        if res.positions is not None:
+            leaf = res.tree.leaf_value[res.positions.to(torch.int64)]
+            self.margins_ = self.margins_ + lr * leaf
+            return
+        for sp in self._stream():
+            pred = predict_tree_bins(res.tree, sp.device, tp.max_depth)
+            ro, nr = sp.host.row_offset, sp.host.n_rows
+            self.margins_[ro : ro + nr] += lr * pred
 
     def _metric_name(self, eval_metric: str) -> str:
         if eval_metric != "auto":
@@ -477,8 +570,9 @@ class GradientBooster:
                 cut_values=self.cuts.values,
                 cut_ptrs=self.cuts.ptrs,
                 cut_min_vals=self.cuts.min_vals,
-                # the reference's sampling RNG key, PRNGKey(seed) (threefry:
-                # [0, seed]); the port draws no random numbers in this slice
+                # the reference's layout of its sampling key, PRNGKey(seed)
+                # (threefry: [0, seed]); the port seeds each round's draws
+                # from (seed, iteration) and keeps no other RNG state
                 rng=np.asarray([0, self.params.seed & 0xFFFFFFFF], np.uint32),
                 **{f"tree_{k}": v for k, v in arrays.items()},
             )

@@ -11,13 +11,14 @@ chunks of at most one page's rows, so binning never needs the whole raw
 matrix on the device. The bins equal the reference's numpy `bin_batch` bit
 for bit, for float32 and float64 input. In external-memory mode the matrix
 is a sequence of fixed-budget pages (default 32 MiB, the paper's page
-size), with the reference's page-row arithmetic. `compact` (Alg. 7) comes
-with the sampled path.
+size), with the reference's page-row arithmetic; `compact` gathers sampled
+rows from many pages into one page (the Compact step of Alg. 7).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Iterator
+import math
+from typing import Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -122,6 +123,10 @@ class EllpackPage:
     def nbytes(self) -> int:
         return self.bins.nbytes
 
+    @property
+    def row_ids(self) -> np.ndarray:
+        return np.arange(self.row_offset, self.row_offset + self.n_rows)
+
 
 @dataclasses.dataclass
 class EllpackMatrix:
@@ -144,6 +149,9 @@ class EllpackMatrix:
         return EllpackPage(
             bins=np.concatenate([p.bins for p in self.pages], axis=0), row_offset=0
         )
+
+    def iter_pages(self) -> Iterator[EllpackPage]:
+        return iter(self.pages)
 
 
 def create_ellpack_inmemory(
@@ -201,3 +209,40 @@ def create_ellpack_pages(
         stacked = np.concatenate(buf, axis=0) if len(buf) > 1 else buf[0]
         if stacked.shape[0]:
             yield EllpackPage(np.ascontiguousarray(stacked), row_offset)
+
+
+def compact(
+    pages: Sequence[EllpackPage], selected_rows: np.ndarray
+) -> tuple[EllpackPage, np.ndarray]:
+    """Gather selected global rows from many pages into one page (Alg. 7 Compact).
+
+    Returns (compacted page, the global row ids in page order) so gradients can
+    be aligned with the compacted rows.
+    """
+    selected_rows = np.asarray(selected_rows)
+    sel_sorted = np.sort(selected_rows)
+    chunks: list[np.ndarray] = []
+    ids: list[np.ndarray] = []
+    for page in pages:
+        lo = np.searchsorted(sel_sorted, page.row_offset, side="left")
+        hi = np.searchsorted(sel_sorted, page.row_offset + page.n_rows, side="left")
+        if hi > lo:
+            local = sel_sorted[lo:hi] - page.row_offset
+            chunks.append(page.bins[local])
+            ids.append(sel_sorted[lo:hi])
+    if not chunks:
+        m = pages[0].num_features if pages else 0
+        return EllpackPage(np.zeros((0, m), dtype=np.uint8), 0), np.zeros(0, np.int64)
+    return (
+        EllpackPage(np.concatenate(chunks, axis=0), 0),
+        np.concatenate(ids).astype(np.int64),
+    )
+
+
+def estimate_ellpack_bytes(n_rows: int, num_features: int) -> int:
+    """CalculateEllpackPageSize of Alg. 5 for dense uint8 ELLPACK."""
+    return n_rows * num_features
+
+
+def num_pages(n_rows: int, num_features: int, page_bytes: int = DEFAULT_PAGE_BYTES) -> int:
+    return max(1, math.ceil(estimate_ellpack_bytes(n_rows, num_features) / page_bytes))

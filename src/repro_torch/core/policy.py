@@ -1,9 +1,8 @@
 """ExecutionPolicy: memory-budget-driven training-mode selection (paper §3.4).
 
 Counterpart of `repro.core.policy`. The decision procedure is the
-reference's, unchanged; the port trains the ``in_core`` and ``out_of_core``
-decisions, and `GradientBooster.fit` raises for ``sampled`` (Alg. 7, queued).
-The policy also carries the streaming knobs (prefetch and staging depths,
+reference's, unchanged, and `GradientBooster.fit` trains each of its three
+decisions. The policy also carries the streaming knobs (prefetch and staging depths,
 device page cache, checkpoint cadence) and the I/O retry policy.
 
 The paper's decision procedure, as a config object: given a `DMatrix` and the
@@ -89,9 +88,10 @@ class ExecutionPolicy:
     # streaming-engine knobs (see repro_torch.pipeline.PageStream)
     prefetch_depth: int = 2
     staging_depth: int = 2
-    # device page cache of the streaming engine: None = auto (no cache on
-    # the streaming path, whose LRU scans would evict every page right
-    # before its reuse); a count caches that many pages; 0 disables
+    # device page cache of the external engines: None = auto (every page
+    # on the sampled path when there are at most 8; none on the streaming
+    # path, whose LRU scans would evict every page right before its reuse);
+    # a count caches that many pages; 0 disables
     device_cache_pages: int | None = None
     # checkpoint cadence for external-mode training (None = no checkpoints)
     checkpoint_every: int | None = None

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Any, Callable, Iterable, Iterator
 
 import numpy as np
@@ -109,6 +110,23 @@ class PageSet:
     def iter_pages(self, prefetch_depth: int = 2) -> Iterator[tuple[int, EllpackPage]]:
         """Host-side pass (no device staging); disk pages go through the prefetcher."""
         yield from self.stream(device="cpu", prefetch_depth=prefetch_depth).iter_host()
+
+    def stage(self, page: EllpackPage, device: str | torch.device = "cuda") -> torch.Tensor:
+        """Host -> device copy of one page ("CopyToGPU"), booked in the
+        page set's `TransferStats`. Pages are staged raw (the page codecs
+        are not ported)."""
+        arr = _bins_to_host_array(page)
+        t0 = time.perf_counter()
+        out = torch.from_numpy(arr).to(device)
+        dt = time.perf_counter() - t0
+        self.stats.host_to_device_bytes += arr.nbytes
+        self.stats.logical_bytes += arr.nbytes
+        self.stats.wire_bytes += arr.nbytes
+        # a lone synchronous copy overlaps nothing: book equal stage and wall
+        # time so it cannot inflate overlap_ratio
+        self.stats.stream_stage_seconds += dt
+        self.stats.stream_wall_seconds += dt
+        return out
 
 
 class DMatrix:

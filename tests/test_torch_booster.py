@@ -26,7 +26,6 @@ from repro_torch.core.booster import (
     GradientBooster,
 )
 from repro_torch.core.policy import ExecutionPolicy
-from repro_torch.core.sampling import SamplingConfig
 from repro_torch.data.dmatrix import ArrayDMatrix, PagedDMatrix
 from repro_torch.serve import PackedForest
 
@@ -174,12 +173,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, fitted, tmp_pat
 
 
 @pytest.mark.parametrize("case", [
-    "lossguide", "sampling", "out_of_core", "hist_budget", "batch_source", "predict_dmatrix",
+    "lossguide", "out_of_core", "hist_budget", "predict_dmatrix",
 ])
 def test_unported_paths_raise_not_implemented(case, data, tmp_path):
-    """Out-of-core streaming trains now; its unported corners still raise:
-    a page cache the reference wrote compressed ("out_of_core") and the
-    sampled decision on a batch source ("batch_source")."""
+    """Out-of-core streaming and sampling train now; the unported corners
+    still raise: a page cache the reference wrote compressed
+    ("out_of_core")."""
     X, y, _, _ = data
     kw = dict(PARAMS, n_estimators=1)
     if case == "out_of_core":
@@ -194,18 +193,11 @@ def test_unported_paths_raise_not_implemented(case, data, tmp_path):
         with pytest.raises(NotImplementedError):
             b.predict_margin(ArrayDMatrix(X, y, max_bin=MAX_BIN, device="cpu"))
         return
-    policy = {
-        "hist_budget": lambda: ExecutionPolicy(hist_budget_bytes=1 << 20),
-        "batch_source": lambda: ExecutionPolicy(mode="sampled"),
-    }.get(case, lambda: None)
-    kw.update({
-        "lossguide": dict(grow_policy="lossguide", max_leaves=4),
-        "sampling": dict(sampling=SamplingConfig(method="mvs", f=0.5)),
-    }.get(case, {}))
+    policy = ExecutionPolicy(hist_budget_bytes=1 << 20) if case == "hist_budget" else None
+    if case == "lossguide":
+        kw.update(grow_policy="lossguide", max_leaves=4)
     with pytest.raises(NotImplementedError):
-        b = GradientBooster(device="cpu", policy=policy(), **kw)
-        b.fit((lambda: iter([(X, y)])) if case == "batch_source" else X,
-              None if case == "batch_source" else y)
+        GradientBooster(device="cpu", policy=policy, **kw).fit(X, y)
 
 
 def test_fit_accepts_dmatrix_and_pinned_cuts(data):

@@ -18,12 +18,29 @@ are allclose(rtol=1e-5, atol=1e-5) to their f32 plain versions (which sum
 f32 in another order) at small sizes, and equal themselves across runs; the
 level-window kernel (kernel 4) equals the node-set kernel (kernel 1) bit for
 bit on equivalent inputs, and ``add_into`` equals ``add_`` bit for bit.
+
+The sampled path (Alg. 7): the MVS threshold has the same bits on every
+call at 200k and 1M rows; kernels 1 and 2 on a compacted page with its
+zero-gradient padding rows (bins 0) against their plain versions, and a
+sampled fit on the card against the same fit on the CPU, both handed the
+same masks: trees under `assert_forests_equal`, margins within
+rtol = atol = 1e-5 off the rows a default-direction tie routes apart, the
+staged bytes exact.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.ellpack import Binner, bin_batch
+from oracle import assert_forests_equal
+from torch_sampled_oracle import patch_sample, tie_routed_rows
+
+import repro_torch.core.booster as booster_mod
+from repro_torch.core.booster import GradientBooster
+from repro_torch.core.ellpack import Binner, EllpackPage, bin_batch, compact
+from repro_torch.core.policy import ExecutionPolicy
+from repro_torch.core.sampling import SamplingConfig
+from repro_torch.data.dmatrix import IterDMatrix
+from repro_torch.data.synthetic import make_classification
 from repro_torch.core.quantile import HistogramCuts, sketch_dense
 from repro_torch.kernels import ellpack_bin as k_bin
 from repro_torch.kernels import forest as k_forest
@@ -609,3 +626,95 @@ def test_bin_kernel_rejects_bad_arguments(dev):
         k_bin.bin_values(x, edges[:1], nb)
     with pytest.raises(ValueError, match="CUDA"):
         k_bin.bin_values(x.cpu(), edges, nb)
+
+
+@pytest.mark.parametrize("n", [200_000, 1_000_000])
+def test_mvs_threshold_same_bits_every_call(dev, n):
+    """μ fixes every MVS weight, so it must not move between two fits: the
+    suffix sums behind it (`prefix_sums`) give the same bits on every call
+    and agree with f64 sums."""
+    from repro_torch.core import sampling
+
+    gen = torch.Generator(device=dev).manual_seed(n)
+    g_hat = torch.rand(n, generator=gen, device=dev).square()
+    sums = [sampling.prefix_sums(g_hat) for _ in range(30)]
+    assert all(torch.equal(s, sums[0]) for s in sums)
+    torch.testing.assert_close(sums[0].double(), torch.cumsum(g_hat.double(), 0),
+                               rtol=1e-6, atol=0)
+    mus = torch.stack([sampling.mvs_threshold(g_hat, 0.1 * n) for _ in range(30)])
+    assert torch.equal(mus, mus[:1].expand_as(mus))
+
+
+def test_kernels_on_a_compacted_page_with_padding_rows(dev):
+    """Alg. 7's page: 1,100 sampled rows of five pages gathered by `compact`,
+    then zero-gradient padding rows with bins 0 up to a capacity of 2,048;
+    every row, padding included, sits in level 3's window or is inactive."""
+    rng = np.random.default_rng(41)
+    m, n_bins = 30, 64
+    host = _bins(rng, 5000, m, n_bins, np.uint8).numpy()
+    pages = [EllpackPage(host[lo : lo + 1000], lo) for lo in range(0, 5000, 1000)]
+    page, ids = compact(pages, rng.choice(5000, 1100, replace=False))
+    capacity = 2048
+    bins = np.zeros((capacity, m), np.uint8)
+    bins[: len(ids)] = page.bins
+    g = np.zeros(capacity, np.float32)
+    h = np.zeros(capacity, np.float32)
+    g[: len(ids)] = rng.normal(size=len(ids)) * 4
+    h[: len(ids)] = rng.random(len(ids))
+    pos = rng.integers(7, 15, capacity).astype(np.int32)
+    pos[rng.random(capacity) < 0.1] = -1
+    bins, g, h, pos = (torch.from_numpy(a).to(dev) for a in (bins, g, h, pos))
+    nodes = torch.tensor([7, 10, 12, 13], dtype=torch.int32, device=dev)
+    got = k_hist.build_histogram_nodes(bins, g, h, pos, nodes, n_bins)
+    assert torch.equal(got, ref.build_histogram_nodes_fixed(bins, g, h, pos, nodes, n_bins))
+    torch.testing.assert_close(got, ref.build_histogram_nodes(bins, g, h, pos, nodes, n_bins),
+                               rtol=1e-5, atol=1e-5)
+    # the partition moves padding rows as real rows (bins 0), and they count
+    # in the next level's row counts
+    n_nodes = 31
+    tree = (
+        torch.from_numpy(rng.integers(0, m, n_nodes).astype(np.int32)).to(dev),
+        torch.from_numpy(rng.integers(0, n_bins, n_nodes).astype(np.int32)).to(dev),
+        torch.from_numpy(rng.random(n_nodes) < 0.5).to(dev),
+        torch.from_numpy(rng.random(n_nodes) < 0.2).to(dev),
+    )
+    got_c, want_c = (torch.zeros(16, dtype=torch.int32, device=dev) for _ in range(2))
+    moved = k_part.partition_rows(bins, pos, *tree, (15, 16), got_c)
+    assert torch.equal(moved, ref.partition_rows(bins, pos, *tree, (15, 16), want_c))
+    assert torch.equal(got_c, want_c) and int(got_c.sum()) > 0
+
+
+def test_sampled_fit_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """20,000 rows at f = 0.1 (capacity 3,072) with masks keeping ~30%: the
+    capacity cut, the compaction, the staged page and the margin pass. Depth
+    3 keeps ~400 or more sampled rows at a node: with a few dozen, two
+    features can split a node's rows into the same two sets, an exact tie
+    that the card's and the CPU's f32 sums may break apart."""
+    X, y = make_classification(20_000, 12, class_sep=1.2, missing_rate=0.05, seed=31)
+    Xe, ye = make_classification(500, 12, class_sep=1.2, missing_rate=0.05, seed=31, batch=1)
+    batches = [(X[i : i + 4000], y[i : i + 4000]) for i in range(0, 20_000, 4000)]
+    kw = dict(n_estimators=3, max_depth=3, max_bin=64, learning_rate=0.3,
+              objective="binary:logistic", sampling=SamplingConfig(method="mvs", f=0.1))
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        masks = patch_sample(monkeypatch, booster_mod, len(X), 0.3,
+                             lambda x, g: torch.from_numpy(x).to(g.device))
+        b = GradientBooster(device=where, policy=ExecutionPolicy(mode="out_of_core"), **kw)
+        b.fit(IterDMatrix(batches, max_bin=64, page_bytes=12 * 4000, device=where),
+              eval_set=(Xe, ye))
+        runs.append((b, masks))
+    (card, masks), (cpu, _) = runs
+    assert card.decision_.mode == cpu.decision_.mode == "sampled"
+    trees = [type(t)(*(a.cpu() for a in t)) for t in card.trees]
+    assert_forests_equal(trees, cpu.trees)
+    binner = Binner(cpu.cuts, "cpu")
+    xb, eb = binner.to_host(X), binner.to_host(Xe)
+    capacity = cpu._sampled_capacity(len(X), kw["sampling"])
+    assert capacity == 3072 and min(int(k.sum()) for k in masks) > capacity
+    tie_x, tie_e = tie_routed_rows(trees, cpu.trees, masks, capacity, xb, xb, eb)
+    assert tie_x.mean() < 0.01 and tie_e.mean() < 0.01
+    np.testing.assert_allclose(card.margins_.cpu().numpy()[~tie_x], cpu.margins_.numpy()[~tie_x],
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(card.predict_margin(Xe)[~tie_e], cpu.predict_margin(Xe)[~tie_e],
+                               rtol=1e-5, atol=1e-5)
+    assert card.stats.host_to_device_bytes == cpu.stats.host_to_device_bytes
