@@ -97,6 +97,31 @@ Phases, each of which fails the run on error:
      build nodes, and chunked split
      evaluation of a 128-node level against one chunk.
 
+  9. (run right after 6b, on phase 6's 15 pages) drives the serving tier
+     (`repro_torch.serve`) at the same width: (a) the in-core booster's
+     ``predict_margin(PagedDMatrix(cache))``, one forest launch a page, bit
+     for bit its ``predict_margin`` of the raw training rows and the plain
+     version (`ref.predict_forest_bins`) page by page; (b) a served
+     forest of 256 random trees of depth 8 (`serving_forest`, unscaled
+     leaves, lr 0.1, the in-core cuts) over the same pages: resident (15
+     launches, bit for bit the plain version page by page), paged in
+     32-tree chunks without pins (8 x 15 launches, h2d
+     8 row passes plus the chunks), with a byte budget that pins 4 of the 8
+     chunks beside one row page (the plan: pages outer) and with every
+     chunk pinned (chunks outer), each bit for bit the resident forest, its
+     `ResidencyPlan` (recorded from the engine) equal to the arithmetic and
+     its h2d bytes within the plan; then two requests through one
+     `ForestServer` with that budget, the second staging no pinned chunk
+     and moving fewer bytes; (c) 4,096 single raw eval rows through
+     `BatchServer(max_batch=256, max_delay_ms=2)` over the resident and the
+     32-tree-chunk forest, equal to a direct predict and to the plain
+     versions (`ref.bin_values`, then `ref.predict_forest_bins`) on the
+     same rows, with p50/p99,
+     occupancy and rows/s; (d) kernel 3 at the chunk shape (32 trees over
+     one 67,108-row page, a random ``margin_in``) against its plain
+     version, timed beside its bound: the second ``predict_forest`` row of
+     the kernels line, whose launches are the chunked launches of (b).
+
 The streaming and sampled fits' device-memory peaks above their starts must
 stay within the budget their policy decided under (phases 6 and 6b). The card's compute mode must be
 Default: the elastic phase runs three processes on it.
@@ -413,6 +438,9 @@ def main(argv=None) -> int:
             st.host_to_device_bytes / n_stream, stream_loop_s / n_stream, node_path,
         )
 
+        # 9. the serving tier on the same pages --------------------------------
+        serving_launches, chunk_row = serving_phase(args.seed, dev, cache, booster, X, Xe)
+
     # 7. determinism of the streaming path ------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pages_") as cache:
         sub_batches = [(X[i : i + batch_rows], y[i : i + batch_rows]) for i in range(0, sub, batch_rows)]
@@ -438,12 +466,16 @@ def main(argv=None) -> int:
     elastic_launches, window_row = elastic_phase(args.seed, dev, params, elastic_path)
     results.insert(1, window_row)
 
-    # launches: the four paths' runs, each counted from zero (per path above)
+    # launches: the five paths' runs, each counted from zero (per path above);
+    # the chunk-shape row of predict_forest counts its chunked launches alone
     for r in results:
         r["launches"] = sum(
             path[r["name"]]
-            for path in (in_core_launches, stream_launches, sampled_launches, elastic_launches)
+            for path in (in_core_launches, stream_launches, sampled_launches, elastic_launches,
+                         serving_launches)
         )
+    i = next(i for i, r in enumerate(results) if r["name"] == "predict_forest")
+    results.insert(i + 1, chunk_row)
     print(json.dumps({"kernels": results}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -697,6 +729,307 @@ def threshold_repeatability(dev, n: int, calls: int = 30) -> None:
           f"a 1-D torch.cumsum gave {n_cumsum}")
     if n_scan != 1 or n_mu != 1 or n_draw != 1:
         raise SystemExit("the MVS threshold or draw differs from call to call")
+
+
+def serving_phase(seed: int, dev, cache: str, booster, X, Xe) -> tuple[dict, dict]:
+    """Phase 9: the serving tier on phase 6's pages (see the module
+    docstring). Each mode runs with the launch counts zeroed just before it
+    and read just after; the direct predicts it is compared with run
+    outside those counts. Returns the path's launch counts and the
+    chunk-shape row of the kernels line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import repro_torch.serve.engine as engine
+    from repro_torch.data.dmatrix import PagedDMatrix
+    from repro_torch.data.pages import TransferStats
+    from repro_torch.kernels import launch_counts, ref, reset_launch_counts
+    from repro_torch.serve import BatchServer, ForestServer, PackedForest, ServeStats
+
+    t_phase = time.perf_counter()
+    totals: dict[str, int] = {}
+    chunked = {"predict_forest": 0}
+
+    def counted(fn):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        return out, counts, seconds
+
+    # (a) the booster's DMatrix front door
+    pdm = PagedDMatrix(cache)
+    n_pages, m = pdm.n_pages, pdm.num_features
+    extents = pdm.page_set().page_extents
+    worst = max(nr for _, nr in extents)
+    direct = booster.predict_margin(X)
+    front, counts, secs = counted(lambda: booster.predict_margin(pdm))
+    print(f"serving (a): booster.predict_margin(PagedDMatrix) over {n_pages} pages of "
+          f"{pdm.n_rows} x {m}: {secs:.3f} s, predict_forest launches "
+          f"{counts['predict_forest']}, == predict_margin(X) (bitwise) "
+          f"{np.array_equal(front, direct)}")
+    if not np.array_equal(front, direct):
+        raise SystemExit("predict_margin of the paged matrix differs from the raw rows'")
+    if counts["predict_forest"] != n_pages:
+        raise SystemExit(f"the DMatrix front door launched predict_forest "
+                         f"{counts['predict_forest']} times over {n_pages} pages")
+    del direct
+
+    # (b) a served forest of 256 trees of depth 8 over the same pages
+    depth, n_trees, tpc = 8, 256, 32
+    feature, split_bin, default_left, is_leaf, leaf = serving_forest(
+        seed, dev, n_trees, depth, m, scaled=False)
+    forest = PackedForest(
+        feature=feature, split_bin=split_bin,
+        split_value=torch.zeros(feature.shape, dtype=torch.float32, device=dev),
+        default_left=default_left, is_leaf=is_leaf, leaf_value=leaf, max_depth=depth,
+        learning_rate=0.1, base_margin=float(booster.base_margin_),
+        objective="binary:logistic", cuts=booster.cuts,
+    )
+    n_chunks = n_trees // tpc
+    chunk_bytes = engine.chunk_bytes(forest, tpc)
+
+    # the plain versions on the same pages: what (a) and every mode of (b) equal
+    plain_a, plain_b = np.empty(pdm.n_rows, np.float32), np.empty(pdm.n_rows, np.float32)
+    store, fitted = pdm.page_set().store, booster.packed_forest()
+    t0 = time.perf_counter()
+    for i, (ro, nr) in enumerate(extents):
+        bins = torch.from_numpy(store.read_page(i)["bins"]).to(dev)
+        plain_a[ro : ro + nr] = _plain_margins(fitted, bins).cpu().numpy()
+        plain_b[ro : ro + nr] = _plain_margins(forest, bins).cpu().numpy()
+    del bins
+    print(f"serving (a): == the plain versions page by page (bitwise) "
+          f"{np.array_equal(front, plain_a)} ({time.perf_counter() - t0:.3f} s for both "
+          f"forests' plain margins)")
+    if not np.array_equal(front, plain_a):
+        raise SystemExit("predict_margin of the paged matrix differs from the plain versions")
+    del front, plain_a
+    data_bytes = pdm.n_rows * m
+    # pins 4 of the 8 chunks beside one row page, plus less than one chunk
+    budget = worst * m + 4 * chunk_bytes[0] + chunk_bytes[0] // 2
+    plans = []
+    plan_residency = engine.plan_residency
+
+    def recorded(*a, **k):
+        plans.append(plan_residency(*a, **k))
+        return plans[-1]
+
+    engine.plan_residency = recorded
+    try:
+        stats = TransferStats()
+        resident, counts, secs = counted(
+            lambda: engine.predict_margin_dmatrix(forest, pdm, stats=stats))
+        print(f"serving (b) resident forest ({n_trees} trees, {forest.nbytes} B): {secs:.3f} s, "
+              f"h2d {stats.host_to_device_bytes} B, predict_forest launches "
+              f"{counts['predict_forest']}, == the plain versions page by page (bitwise) "
+              f"{np.array_equal(resident, plain_b)}")
+        if not np.array_equal(resident, plain_b):
+            raise SystemExit("the resident served forest differs from the plain versions")
+        if counts["predict_forest"] != n_pages or stats.host_to_device_bytes != data_bytes:
+            raise SystemExit(f"resident serving: {counts}, h2d {stats.host_to_device_bytes}")
+        modes = (
+            ("unpinned", dict(pin_chunks=False),
+             plan_residency(chunk_bytes, data_bytes, n_pages, None, pin=False)),
+            ("budget", dict(serve_budget_bytes=budget),
+             plan_residency(chunk_bytes, data_bytes, n_pages, budget, reserve_bytes=worst * m)),
+            ("pin all", dict(pin_chunks=True),
+             plan_residency(chunk_bytes, data_bytes, n_pages, None)),
+        )
+        for label, kw, want in modes:
+            stats, sstats = TransferStats(), ServeStats()
+            plans.clear()
+            out, counts, secs = counted(lambda: engine.predict_margin_dmatrix(
+                forest, pdm, trees_per_chunk=tpc, stats=stats, serve_stats=sstats, **kw))
+            chunked["predict_forest"] += counts["predict_forest"]
+            h2d = stats.host_to_device_bytes
+            plan = plans[0] if plans else want
+            # unpinned, the engine plans nothing: chunks outer, every chunk
+            # pass re-streams the rows (the baseline bill)
+            modeled = (plan.baseline_bytes if label == "unpinned"
+                       else plan.bytes_chunks_outer if plan.order == "chunks_outer"
+                       else plan.bytes_pages_outer)
+            print(f"serving (b) {label}: {secs:.3f} s, "
+                  f"{'no plan' if label == 'unpinned' else f'plan {plan}'}, h2d {h2d} B "
+                  f"(modeled {modeled}, baseline {plan.baseline_bytes}), chunk hits "
+                  f"{sstats.chunk_hits} misses {sstats.chunk_misses}, predict_forest "
+                  f"launches {counts['predict_forest']}, == resident (bitwise) "
+                  f"{np.array_equal(out, resident)}")
+            if not np.array_equal(out, resident):
+                raise SystemExit(f"serving mode {label!r} differs from the resident forest")
+            if counts["predict_forest"] != n_chunks * n_pages:
+                raise SystemExit(f"serving mode {label!r} launched predict_forest "
+                                 f"{counts['predict_forest']} times, not chunks x pages")
+            if label == "unpinned":  # the legacy bill: 8 row passes plus the chunks
+                if plans or h2d != plan.baseline_bytes:
+                    raise SystemExit(f"unpinned serving moved {h2d} B, not the chunks x "
+                                     f"pages bill {plan.baseline_bytes}")
+                continue
+            if plan != want:
+                raise SystemExit(f"serving mode {label!r} planned {plan}, expected {want}")
+            if not h2d <= modeled < plan.baseline_bytes:
+                raise SystemExit(f"serving mode {label!r} moved {h2d} B against the modeled "
+                                 f"{modeled} and the baseline {plan.baseline_bytes}")
+    finally:
+        engine.plan_residency = plan_residency
+    budget_plan, all_plan = modes[1][2], modes[2][2]
+    # at full size: 8 chunks of 392,448 B, 15 pages of at most 67,108 rows
+    if pdm.n_rows == 1_000_000 and not (
+            budget_plan.n_pinned == 4 and budget_plan.order == "pages_outer"
+            and budget_plan.bytes_pages_outer == 525_116_672
+            and budget_plan.bytes_chunks_outer == 2_003_139_584
+            and all_plan.n_pinned == 8 and all_plan.order == "chunks_outer"):
+        raise SystemExit(f"the plans {budget_plan}, {all_plan} are not the stated arithmetic")
+
+    # two requests through one server with the budget: pins persist
+    sstats = ServeStats()
+    server = ForestServer(forest, trees_per_chunk=tpc, serve_budget_bytes=budget,
+                          serve_stats=sstats)
+    per_request = []
+    for i in range(2):
+        before = dataclasses.replace(sstats, latencies_s=[])
+        out, counts, secs = counted(lambda: server.predict_margin(pdm))
+        chunked["predict_forest"] += counts["predict_forest"]
+        per_request.append((sstats.chunk_hits - before.chunk_hits,
+                            sstats.chunk_misses - before.chunk_misses,
+                            sstats.h2d_bytes - before.h2d_bytes))
+        print(f"serving (b) server request {i + 1}: {secs:.3f} s, chunk hits "
+              f"{per_request[-1][0]} misses {per_request[-1][1]} h2d {per_request[-1][2]} B, "
+              f"== resident (bitwise) {np.array_equal(out, resident)}")
+        if not np.array_equal(out, resident):
+            raise SystemExit(f"server request {i + 1} differs from the resident forest")
+    print(f"serving (b) server residency: {json.dumps(server.residency())}")
+    (hits_1, misses_1, h2d_1), (hits_2, misses_2, h2d_2) = per_request
+    n_pin = server.cache.pinned_pages
+    # the second request's pin prologue hits where the first one staged; what
+    # misses is the unpinned remainder, at most once a chunk and page
+    if not (n_pin == budget_plan.n_pinned and hits_2 >= hits_1 + n_pin
+            and misses_2 <= misses_1 - n_pin
+            and misses_2 <= (n_chunks - n_pin) * n_pages and h2d_2 < h2d_1):
+        raise SystemExit(f"the second request staged pinned chunks or cost as much: "
+                         f"{per_request}, {n_pin} pinned")
+
+    # (c) single raw rows through the micro-batcher
+    rows = np.ascontiguousarray(Xe[:4096])
+    want = forest.predict_margin(rows)
+    # the plain versions at the batch's shapes: binning, then the forest
+    cuts = forest.cuts
+    dtype = np.float32 if np.result_type(rows.dtype, np.float32) == np.float32 else np.float64
+    plain_bins = ref.bin_values(
+        torch.from_numpy(rows.astype(dtype)).to(dev),
+        torch.from_numpy(cuts.padded_edges(max(cuts.max_n_bins, 1))).to(dev),
+        torch.from_numpy(cuts.n_bins_per_feature.astype(np.int32)).to(dev))
+    want_plain = _plain_margins(forest, plain_bins).cpu().numpy()
+    print(f"serving (c): direct predict of {len(rows)} rows == the plain versions (bitwise) "
+          f"{np.array_equal(want, want_plain)}")
+    if not np.array_equal(want, want_plain):
+        raise SystemExit("direct predict of the batch rows differs from the plain versions")
+    for label, kw in (("resident", {}), ("32-tree chunks", dict(trees_per_chunk=tpc))):
+        bstats = ServeStats()
+        srv_forest = ForestServer(forest, **kw)
+
+        def serve():
+            with BatchServer(srv_forest.predict_margin, max_batch=256, max_delay_ms=2.0,
+                             stats=bstats) as bs:
+                futures = [bs.submit(r) for r in rows]
+                return np.asarray([f.result(timeout=120.0) for f in futures], np.float32)
+
+        got, counts, secs = counted(serve)
+        print(f"serving (c) BatchServer, {label}: {bstats.requests} requests in "
+              f"{bstats.batches} batches, {secs:.3f} s, p50 {bstats.p50_ms:.4f} ms p99 "
+              f"{bstats.p99_ms:.4f} ms occupancy {bstats.occupancy:.4f} rows/s "
+              f"{bstats.rows_per_s:.1f}, launches bin_values {counts['bin_values']} "
+              f"predict_forest {counts['predict_forest']}, == direct predict and the plain "
+              f"versions (bitwise) {np.array_equal(got, want) and np.array_equal(got, want_plain)}")
+        if not (np.array_equal(got, want) and np.array_equal(got, want_plain)):
+            raise SystemExit(f"BatchServer ({label}) differs from direct predict or the plain "
+                             f"versions")
+        if min(counts["bin_values"], counts["predict_forest"]) < bstats.batches:
+            raise SystemExit(f"BatchServer ({label}) launched a kernel less than once a "
+                             f"batch: {counts}, {bstats.batches} batches")
+    print(f"serving path launches: {json.dumps(totals)} (predict_forest at the chunk "
+          f"shape {chunked['predict_forest']})")
+    if not all(totals[k] > 0 for k in ("predict_forest", "bin_values")):
+        raise SystemExit(f"a kernel of the serving path was never launched: {totals}")
+
+    # (d) kernel 3 at the chunk shape
+    page = torch.from_numpy(pdm.page_set().store.read_page(0)["bins"]).to(dev)
+    row = chunk_kernel_check(seed, dev, page, forest.chunk(0, tpc))
+    row["launches"] = chunked["predict_forest"]
+    print(f"serving phase: {time.perf_counter() - t_phase:.3f} s in all")
+    return totals, row
+
+
+def _plain_margins(forest, bins):
+    """``forest``'s margins over device ``bins`` through the plain version
+    (`ref.predict_forest_bins`), after the eager leaf pre-scale and base
+    margin that `PackedForest.predict_margin_bins` gives the kernel."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    dev = bins.device
+    lr = torch.tensor(forest.learning_rate, dtype=torch.float32, device=dev)
+    base = torch.full((bins.shape[0],), forest.base_margin, dtype=torch.float32, device=dev)
+    return ref.predict_forest_bins(
+        bins, forest.feature, forest.split_bin, forest.default_left, forest.is_leaf,
+        lr * forest.leaf_value.to(torch.float32), forest.max_depth, base)
+
+
+def chunk_kernel_check(seed: int, dev, bins, chunk) -> dict:
+    """Kernel 3 at the paged forest's chunk shape: ``chunk``'s trees (their
+    leaves scaled as `ops.predict_forest` scales them) over one staged page
+    with a random ``margin_in``, bit for bit against its plain version and
+    itself, timed beside its bound as `forest_checks` times it. Returns its
+    row of the kernels line; restores the launch count."""
+    import torch
+
+    from repro_torch.kernels import forest as k_forest
+    from repro_torch.kernels import ref
+
+    depth = chunk.max_depth
+    lr = torch.tensor(chunk.learning_rate, dtype=torch.float32, device=dev)
+    planes = (chunk.feature.contiguous(), chunk.split_bin.contiguous(),
+              chunk.default_left.contiguous(), chunk.is_leaf.contiguous(),
+              lr * chunk.leaf_value)
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    m_in = torch.randn(bins.shape[0], generator=gen, device=dev)
+    n, m = bins.shape
+    n_trees, n_total = planes[0].shape
+    saved = k_forest.launches
+
+    def kern():
+        return k_forest.predict_forest(bins, *planes, depth, m_in)
+
+    def plain():
+        return ref.predict_forest_bins(bins, *planes, depth, m_in)
+
+    got, want = kern(), plain()
+    if not (torch.equal(got, want) and torch.equal(got, kern())):
+        err = (got - want).abs().max().item()
+        raise SystemExit(f"forest kernel disagrees with its plain version at the chunk "
+                         f"shape: max err {err}")
+    visits, distinct = _forest_reads(bins, *planes[:4], depth)
+    bound, by = _bound(distinct + n * 8 + n_trees * n_total * 14, n * n_trees)
+    t = dict(ms=_time_ms(kern, 50), device_ms=_time_ms(kern, 50, queued=True),
+             plain_ms=_time_ms(plain, 3))
+    k_forest.launches = saved
+    print(f"kernel predict_forest, chunk shape ({n} x {m} uint8, {n_trees} trees of depth "
+          f"{depth}, a random margin_in, {visits} internal visits, {distinct} distinct bins "
+          f"read): == the plain version and itself (bitwise); ms={t['ms']:.4f} "
+          f"device_ms={t['device_ms']:.4f} plain_ms={t['plain_ms']:.4f} bound_ms={bound:.4f} "
+          f"({by})")
+    return dict(name="predict_forest", shape=f"chunk: {n_trees} trees x {n} rows",
+                route="cuda", source="src/repro_torch/kernels/csrc/forest.cu",
+                replaces="src/repro/kernels/forest.py:129", launches=0, max_abs_err=0.0,
+                ms=t["ms"], device_ms=t["device_ms"], plain_ms=t["plain_ms"],
+                bound_ms=bound, bound_by=by, library_ms=None)
 
 
 def elastic_phase(seed: int, dev, params: dict, path_kernels) -> tuple[dict, dict]:
@@ -1358,12 +1691,13 @@ def binning_split(dm, X, dev) -> None:
           f"(CUDA events), copy back and placement {d2h_s:.3f} s, total {total_s:.3f} s")
 
 
-def serving_forest(seed: int, dev, n_trees: int, depth: int, m: int):
+def serving_forest(seed: int, dev, n_trees: int, depth: int, m: int, scaled: bool = True):
     """A served forest's planes, made on the card from ``seed``: complete
     layout, the last level all leaves and about 10% early leaves above it,
     features in [0, m), split bins in [0, 254], random default_left, and
     normal leaf values pre-scaled by the paper config's lr 0.1 (one eager
-    multiply)."""
+    multiply), or left unscaled with ``scaled=False`` (for a `PackedForest`,
+    whose launches scale them)."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(seed + 4)
@@ -1374,8 +1708,9 @@ def serving_forest(seed: int, dev, n_trees: int, depth: int, m: int):
     is_leaf = torch.rand(shape, generator=gen, device=dev) < 0.1
     is_leaf[:, 2**depth - 1:] = True
     leaf = torch.randn(shape, generator=gen, device=dev)
-    scaled = torch.tensor(0.1, dtype=torch.float32, device=dev) * leaf
-    return feature, split_bin, default_left, is_leaf, scaled
+    if scaled:
+        leaf = torch.tensor(0.1, dtype=torch.float32, device=dev) * leaf
+    return feature, split_bin, default_left, is_leaf, leaf
 
 
 def _forest_reads(bins, feature, split_bin, default_left, is_leaf, max_depth: int):

@@ -24,7 +24,9 @@ booster's device seeded from ``(params.seed, iteration)``, so a resumed fit
 draws the masks the uninterrupted fit drew.
 
 ``predict`` bins raw rows on the device (the CUDA binning kernel) and goes
-through `PackedForest` and the CUDA forest kernel.
+through `PackedForest` and the CUDA forest kernel; a DMatrix streams its
+ELLPACK pages through the serving tier (`repro_torch.serve`), one forest
+launch a page.
 
 ``resume(checkpoint, data)`` reloads a forest and replays its margins page
 by page, and ``fit(data, start_iteration=len(trees))`` boosts on from it:
@@ -518,24 +520,22 @@ class GradientBooster:
             self._packed_forest = PackedForest.from_booster(self)
         return self._packed_forest
 
-    def predict_margin(
-        self, X: np.ndarray, iteration_range: tuple[int, int] | None = None
-    ) -> np.ndarray:
-        """Margins of raw feature rows, binned on the device, through one
-        fused forest launch; equal bit for bit to
-        `PackedForest.predict_margin_per_tree`."""
+    def predict_margin(self, X, iteration_range: tuple[int, int] | None = None) -> np.ndarray:
+        """Margins through the fused serving tier, mirroring ``fit``: raw rows
+        are binned on the device and predicted in one whole-forest launch; a
+        DMatrix streams its ELLPACK pages (`predict_margin_dmatrix`). Both
+        equal `PackedForest.predict_margin_per_tree` bit for bit."""
         if self.cuts is None:
             raise ValueError("booster is not fitted")
-        if hasattr(X, "single_page_bins"):
-            raise NotImplementedError(
-                "predicting a DMatrix streams its pages through the serving tier, "
-                "which is not ported yet (ROADMAP queue 1 item 7); pass the raw "
-                "feature array"
-            )
         forest = self.packed_forest(iteration_range)
+        if hasattr(X, "page_set"):  # DMatrix: the streaming serving path
+            from repro_torch.serve.engine import predict_margin_dmatrix
+
+            return predict_margin_dmatrix(forest, X)
         return forest.predict_margin_bins(forest.quantize(X)).cpu().numpy()
 
-    def predict(self, X: np.ndarray, output_margin: bool = False) -> np.ndarray:
+    def predict(self, X, output_margin: bool = False) -> np.ndarray:
+        """Predictions for raw feature rows or any DMatrix (mirrors ``fit``)."""
         margin = self.predict_margin(X)
         if output_margin:
             return margin

@@ -1,16 +1,19 @@
 """Device-memory model for the three training modes (paper Table 1 analogue).
 
-Counterpart of `repro.core.memory` (a copy, without the serving terms, which
-arrive with the serving slice). Table 1 ("maximum rows before OOM on a 16 GiB
-device") is an explicit byte model of each mode's device working set. The
-default device stays the paper's 16 GiB so that `ExecutionPolicy` decides
-exactly as the reference does; ``memory_budget_bytes`` sets another. It
-mirrors the paper's accounting:
+Counterpart of `repro.core.memory`, a copy. Table 1 ("maximum rows before
+OOM on a 16 GiB device") is an explicit byte model of each mode's device
+working set. The default device stays the paper's 16 GiB so that
+`ExecutionPolicy` decides exactly as the reference does;
+``memory_budget_bytes`` sets another. It mirrors the paper's accounting:
 
   in-core       whole ELLPACK matrix + per-row training state + histograms
   out-of-core   double-buffered page + per-row training state + histograms
   ooc+sampling  double-buffered page + compacted (f·n)-row ELLPACK
                 + per-row state for sampled rows only + histograms
+
+and, for serving (`repro_torch.serve`), a packed forest beside one launch's
+batch of rows, which sizes the paged forest's tree-chunks and the shared
+residency budget.
 
 The histogram term is depth-honest: the paper's fixed ``2^(d-1)`` snapshot
 ignores both the compact build half that coexists during sibling expansion
@@ -134,6 +137,59 @@ class DeviceMemoryModel:
             + self.ellpack_bytes(kept)  # compacted page (Alg. 7)
             + kept * self.row_state_bytes
         )
+
+    # ----- serving working set (repro_torch.serve) -----
+    @property
+    def forest_node_bytes(self) -> int:
+        """One packed forest node in device staging layout: 6 f32/int32
+        planes (feature, split_bin, split_value, default_left, is_leaf,
+        leaf_value — `serve.forest._PAGE_FIELDS`)."""
+        return 6 * 4
+
+    def packed_forest_bytes(self, n_trees: int, max_depth: int | None = None) -> int:
+        """Device bytes of a `PackedForest` of ``n_trees`` complete-layout
+        trees (the serving analogue of the matrix term)."""
+        d = self.max_depth if max_depth is None else max_depth
+        return n_trees * (2 ** (d + 1) - 1) * self.forest_node_bytes
+
+    def serve_batch_bytes(self, batch_rows: int) -> int:
+        """Per-launch row-side working set: the staged bins page counted as
+        int32 (4 bytes a bin) + running margins, the reference's arithmetic.
+
+        Conservative for the port, which stages and walks uint8 bins (1 byte
+        a bin): it is kept so that chunk sizes and residency plans equal the
+        reference's."""
+        return batch_rows * (4 * self.num_features + 4)
+
+    def serve_bytes(self, batch_rows: int, n_trees: int, max_depth: int | None = None) -> int:
+        """One serving launch's device working set: forest + batch."""
+        return self.packed_forest_bytes(n_trees, max_depth) + self.serve_batch_bytes(batch_rows)
+
+    def serve_batch_rows(
+        self, worst_case_rows: int, measured_rows: int | None = None
+    ) -> int:
+        """The batch-rows term that sizes serving tree-chunks: the measured
+        launch shape of a `ServeStats` history (batches padded to
+        ``max_batch`` rows) when there is one, else the worst-case row page
+        of the matrix being predicted."""
+        if measured_rows is not None and measured_rows > 0:
+            return measured_rows
+        return worst_case_rows
+
+    def serve_residency_budget(self, batch_rows: int) -> int:
+        """Device bytes left for the shared row-page/forest-chunk residency
+        cache once one ``batch_rows`` launch working set is carved out —
+        the default ``max_bytes`` of the serving `DevicePageCache`."""
+        return max(0, self.hbm_bytes - self.serve_batch_bytes(batch_rows))
+
+    def max_trees_resident(self, batch_rows: int, max_depth: int | None = None) -> int:
+        """Most trees that fit on the device next to one ``batch_rows`` page:
+        the paged forest's chunk size (`repro_torch.serve.engine`); forests
+        beyond it stream tree-chunks through `PageStream`."""
+        d = self.max_depth if max_depth is None else max_depth
+        per_tree = (2 ** (d + 1) - 1) * self.forest_node_bytes
+        budget = self.hbm_bytes - self.serve_batch_bytes(batch_rows)
+        return max(0, budget // per_tree)
 
     # ----- closed-form max rows per mode (Table 1) -----
     # integer bit math (x8) keeps the closed forms exact for fractional

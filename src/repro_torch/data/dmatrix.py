@@ -40,7 +40,7 @@ from repro_torch.core.ellpack import (
     rows_per_page,
 )
 from repro_torch.core.quantile import HistogramCuts, QuantileSketch
-from repro_torch.data.pages import PageStore, TransferStats
+from repro_torch.data.pages import NOT_PORTED_CODEC, PageStore, TransferStats
 from repro_torch.pipeline import DevicePageCache, PageStream
 
 _META_FILE = "dmatrix.npz"
@@ -84,19 +84,31 @@ class PageSet:
         staging_depth: int = 2,
         cache: DevicePageCache | None = None,
         retry=None,
+        codec: str | None = None,
+        cache_tag: str = "page",
+        stats: TransferStats | None = None,
     ) -> PageStream:
         """One pass of the pipeline engine over every page onto ``device``.
 
         ``retry`` is the prefetcher's `RetryPolicy` (None = its defaults).
-        The pass books into the page set's `TransferStats`.
+        ``codec`` names a page codec; only raw pages are ported, so anything
+        but None or ``"raw"`` raises. ``cache_tag`` namespaces this matrix's
+        pages inside a shared ``cache``, which one serving cache that
+        outlives a matrix needs (colliding keys would return another
+        matrix's rows). ``stats`` redirects the pass's ledger entries
+        (default: the page set's own `TransferStats`), so that the serving
+        engine books row pages and forest chunks in one ledger.
         """
+        if codec not in (None, "raw"):
+            raise NotImplementedError(NOT_PORTED_CODEC.format(codec))
         common = dict(
             to_array=_bins_to_host_array,
             device=device,
-            stats=self.stats,
+            stats=stats if stats is not None else self.stats,
             prefetch_depth=prefetch_depth,
             staging_depth=staging_depth,
             cache=cache,
+            cache_tag=cache_tag,
             retry=retry,
         )
         if self.host_pages is not None:

@@ -143,8 +143,17 @@ class PageStream:
         False for pages already in host RAM).
     prefetch_depth / staging_depth : fetches / device copies kept in flight;
         ``staging_depth`` is also the number of pinned host buffers.
-    cache : optional `DevicePageCache`, keyed ``("page", index)``; hits skip
-        the host->device copy.
+    cache : optional `DevicePageCache`, keyed ``(cache_tag, index)``; hits
+        skip the host->device copy.
+    cache_tag : namespace of the cache keys, so that distinct streams over
+        the same indices (a matrix's row pages, a forest's tree-chunks) do
+        not collide in one cache.
+    cache_pin : stage into the cache's pinned (never-evicted) tier: the
+        serving tier's pin prologue stages forest tree-chunks this way, so
+        that row-page pressure on the shared byte budget cannot displace
+        them. Entries the pin budget refuses land in the plain LRU tier.
+        ``fetch`` may return None for a key it knows is pinned: the cache
+        hit comes first and the host page is never read.
     stats : `TransferStats` sink (defaults to the module-global one).
     retry : `RetryPolicy` for the threaded prefetcher's transient-fault
         retries (None = the policy's defaults).
@@ -163,6 +172,8 @@ class PageStream:
         prefetch_depth: int = 2,
         staging_depth: int = 2,
         cache: DevicePageCache | None = None,
+        cache_tag: str = "page",
+        cache_pin: bool = False,
         stats: TransferStats | None = None,
         retry: RetryPolicy | None = None,
     ):
@@ -174,6 +185,8 @@ class PageStream:
         self.prefetch_depth = max(1, prefetch_depth)
         self.staging_depth = max(1, staging_depth)
         self.cache = cache
+        self.cache_tag = cache_tag
+        self.cache_pin = cache_pin
         self.stats = stats or GLOBAL_STATS
         self.retry = retry
 
@@ -239,7 +252,7 @@ class PageStream:
     # -------------------------------------------------------------- device pass
     def _stage(self, idx: int, host: Any, stager: _CudaStager | None):
         """(StreamedPage, ready event or None) for one fetched page."""
-        key = ("page", idx)
+        key = (self.cache_tag, idx)
         if self.cache is not None:
             entry = self.cache.lookup(key)
             if entry is not None:
@@ -260,7 +273,7 @@ class PageStream:
         self.stats.logical_bytes += arr.nbytes
         self.stats.wire_bytes += arr.nbytes
         if self.cache is not None:
-            self.cache.put(key, dev, arr.nbytes)
+            self.cache.put(key, dev, arr.nbytes, pinned=self.cache_pin)
         return StreamedPage(idx, host, dev), ready
 
     def __iter__(self) -> Iterator[StreamedPage]:

@@ -7,12 +7,17 @@ on the device once and predicts the whole forest per launch through
 
 Accumulation is in tree order over a leaf table pre-scaled by the learning
 rate, so packed prediction equals the per-tree loop
-(`predict_margin_per_tree`) bit for bit. Tree chunking and page packing for
-the paged forest arrive with the serving slice.
+(`predict_margin_per_tree`) bit for bit.
+
+`chunk(lo, hi)` splits the forest into tree ranges for the paged forest
+(forests larger than the device budget; see `repro_torch.serve.engine`), and
+`pack_page`/`unpack_page` flatten a chunk into the one-ndarray page that
+`repro_torch.pipeline.PageStream` stages, and back on the device.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -22,6 +27,9 @@ from repro_torch.core.tree import TreeArrays
 from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
+
+# pack_page row layout: one f32 plane per tree-array field, in this order
+_PAGE_FIELDS = ("feature", "split_bin", "split_value", "default_left", "is_leaf", "leaf_value")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +88,13 @@ class PackedForest:
     def device(self) -> torch.device:
         return self.feature.device
 
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the packed planes (int32/f32 words, bool bytes)."""
+        return sum(
+            getattr(self, f).numel() * getattr(self, f).element_size() for f in _PAGE_FIELDS
+        )
+
     def _base(self, n_rows: int) -> Tensor:
         return torch.full((n_rows,), self.base_margin, dtype=torch.float32, device=self.device)
 
@@ -92,14 +107,19 @@ class PackedForest:
             self.leaf_value, self.max_depth, self.learning_rate, margin_in,
         )
 
+    @functools.cached_property
+    def _binner(self):
+        """The cuts as device tables, made once a forest, not once a request."""
+        from repro_torch.core.ellpack import Binner
+
+        return Binner(self.cuts, self.device)
+
     def quantize(self, X: np.ndarray) -> Tensor:
         """Raw feature rows -> uint8 bins, binned on the forest's device (the
         CUDA binning kernel there), in chunks of one page's rows."""
         if self.cuts is None:
             raise ValueError("PackedForest has no cuts; predict from bins instead")
-        from repro_torch.core.ellpack import Binner
-
-        return Binner(self.cuts, self.device).to_device(X)
+        return self._binner.to_device(X)
 
     def predict_margin(self, X: np.ndarray) -> np.ndarray:
         """Raw-feature front door: quantise with the forest's cuts, then fuse."""
@@ -119,3 +139,37 @@ class PackedForest:
                 self.is_leaf[t], scaled_leaf[t], self.max_depth,
             )
         return margin
+
+    # ------------------------------------------------- paged-forest chunking
+    def chunk(self, lo: int, hi: int) -> "PackedForest":
+        """Trees [lo, hi) as a self-contained chunk (same metadata)."""
+        sliced = {f: getattr(self, f)[lo:hi] for f in _PAGE_FIELDS}
+        return dataclasses.replace(self, **sliced)
+
+    @functools.cached_property
+    def _host_planes(self) -> np.ndarray:
+        """The whole forest as one (6, T, n_total) f32 host array, copied
+        from the device once: the source every chunk page is cut from."""
+        return np.stack(
+            [getattr(self, f).cpu().numpy().astype(np.float32) for f in _PAGE_FIELDS]
+        )
+
+    def pack_page(self, lo: int, hi: int) -> np.ndarray:
+        """Trees [lo, hi) as ONE (6, hi-lo, n_total) f32 host array, the
+        single-ndarray page shape `PageStream` stages. Feature ids below
+        2**24, bins up to 255 and bools are exact in f32, so `unpack_page`
+        round-trips bit for bit."""
+        return np.ascontiguousarray(self._host_planes[:, lo:hi])
+
+    @staticmethod
+    def unpack_page(page: Tensor) -> dict[str, Tensor]:
+        """Inverse of `pack_page` on the page's device: contiguous planes in
+        the dtypes the forest kernel's wrapper requires."""
+        return {
+            "feature": page[0].to(torch.int32).contiguous(),
+            "split_bin": page[1].to(torch.int32).contiguous(),
+            "split_value": page[2].contiguous(),
+            "default_left": (page[3] > 0.5).contiguous(),
+            "is_leaf": (page[4] > 0.5).contiguous(),
+            "leaf_value": page[5].contiguous(),
+        }

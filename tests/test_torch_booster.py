@@ -173,7 +173,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, fitted, tmp_pat
 
 
 @pytest.mark.parametrize("case", [
-    "lossguide", "out_of_core", "hist_budget", "predict_dmatrix",
+    "lossguide", "out_of_core", "hist_budget",
 ])
 def test_unported_paths_raise_not_implemented(case, data, tmp_path):
     """Out-of-core streaming and sampling train now; the unported corners
@@ -187,11 +187,6 @@ def test_unported_paths_raise_not_implemented(case, data, tmp_path):
         b = GradientBooster(device="cpu", policy=ExecutionPolicy(mode="out_of_core"), **kw)
         with pytest.raises(NotImplementedError, match="item 8"):
             b.fit(PagedDMatrix(cache))
-        return
-    if case == "predict_dmatrix":
-        b = GradientBooster(device="cpu", **kw).fit(X, y)
-        with pytest.raises(NotImplementedError):
-            b.predict_margin(ArrayDMatrix(X, y, max_bin=MAX_BIN, device="cpu"))
         return
     policy = ExecutionPolicy(hist_budget_bytes=1 << 20) if case == "hist_budget" else None
     if case == "lossguide":

@@ -26,6 +26,15 @@ sampled fit on the card against the same fit on the CPU, both handed the
 same masks: trees under `assert_forests_equal`, margins within
 rtol = atol = 1e-5 off the rows a default-direction tie routes apart, the
 staged bytes exact.
+
+Serving: every `predict_margin_dmatrix` mode on the card (resident; chunks
+unpinned, pinned under a byte budget in either loop order, all pinned)
+equals the resident forest and the same mode on the CPU bit for bit, with
+equal ledgers; a `ForestServer` keeps its pins across requests; kernel 3 at
+the paged forest's chunk shape, two chunks chained through ``margin_in``,
+equals its plain version and the whole forest in one launch; and
+`BatchServer`, binning and walking on its worker thread, equals a direct
+predict and the plain versions on the CPU.
 """
 import numpy as np
 import pytest
@@ -36,6 +45,7 @@ from torch_sampled_oracle import patch_sample, tie_routed_rows
 
 import repro_torch.core.booster as booster_mod
 from repro_torch.core.booster import GradientBooster
+from repro_torch.core.memory import DeviceMemoryModel
 from repro_torch.core.ellpack import Binner, EllpackPage, bin_batch, compact
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.core.sampling import SamplingConfig
@@ -49,6 +59,8 @@ from repro_torch.kernels import partition as k_part
 from repro_torch.kernels import ref
 
 pytestmark = pytest.mark.cuda
+
+NODE_BYTES = DeviceMemoryModel().forest_node_bytes  # one staged forest-chunk node
 
 
 @pytest.fixture
@@ -718,3 +730,151 @@ def test_sampled_fit_on_the_card_matches_the_cpu(dev, monkeypatch):
     np.testing.assert_allclose(card.predict_margin(Xe)[~tie_e], cpu.predict_margin(Xe)[~tie_e],
                                rtol=1e-5, atol=1e-5)
     assert card.stats.host_to_device_bytes == cpu.stats.host_to_device_bytes
+
+
+# ------------------------------------------------------------------ serving
+def _served(dev, n_rows=3000, m=24, n_trees=18, depth=5, page_rows=400):
+    """A random `PackedForest` (unscaled leaves, lr 0.3) on ``dev`` and a
+    paged matrix of ``n_rows`` rows binned with its cuts, on ``dev``."""
+    from repro_torch.data.dmatrix import ArrayDMatrix
+    from repro_torch.serve import PackedForest
+
+    X, _ = make_classification(n_rows, m, missing_rate=0.05, seed=41)
+    dm = ArrayDMatrix(X, max_bin=64, page_bytes=page_rows * m, device=dev)
+    planes = _forest_planes(np.random.default_rng(41), n_trees, depth, m, s_range=(0, 64))
+    forest = PackedForest(
+        *(t.to(dev) for t in planes[:2]), torch.zeros(planes[0].shape, device=dev),
+        *(t.to(dev) for t in planes[2:]), max_depth=depth, learning_rate=0.3,
+        base_margin=0.25, objective="binary:logistic", cuts=dm.cuts,
+    )
+    return X, dm, forest
+
+
+def _on_cpu(forest):
+    """The same `PackedForest` with its planes on the CPU, where it predicts
+    through the kernels' plain versions."""
+    import dataclasses
+
+    return dataclasses.replace(forest, **{
+        f.name: getattr(forest, f.name).cpu() for f in dataclasses.fields(forest)
+        if isinstance(getattr(forest, f.name), torch.Tensor)
+    })
+
+
+SERVE_MODES = {
+    "resident": {},
+    "unpinned": dict(trees_per_chunk=4, pin_chunks=False),
+    "budget_chunks_outer": dict(trees_per_chunk=4, budget_chunks=2, order="chunks_outer"),
+    "budget_pages_outer": dict(trees_per_chunk=4, budget_chunks=2, order="pages_outer"),
+    "pin_all": dict(trees_per_chunk=3, pin_chunks=True),
+}
+
+
+@pytest.mark.parametrize("mode", list(SERVE_MODES))
+def test_serving_modes_on_the_card_equal_the_resident_forest_and_the_cpu(dev, monkeypatch,
+                                                                         mode):
+    """Every serving mode on the card: margins equal to the resident forest
+    and to the same mode on the CPU bit for bit, the ledgers equal."""
+    import dataclasses
+
+    from repro_torch.data.dmatrix import ArrayDMatrix
+    from repro_torch.data.pages import TransferStats
+    from repro_torch.serve import ServeStats
+    from repro_torch.serve import engine
+
+    X, dm, forest = _served(dev)
+    cpu_forest = _on_cpu(forest)
+    cpu_dm = ArrayDMatrix(X, cuts=dm.cuts, max_bin=64, page_bytes=dm.page_bytes, device="cpu")
+    assert dm.n_pages == cpu_dm.n_pages > 4
+    kw = dict(SERVE_MODES[mode])
+    order = kw.pop("order", None)
+    if "budget_chunks" in kw:
+        worst = max(nr for _, nr in dm.page_set().page_extents)
+        per_chunk = NODE_BYTES * kw["trees_per_chunk"] * forest.n_total
+        kw["serve_budget_bytes"] = worst * dm.num_features + kw.pop("budget_chunks") * per_chunk
+    if order is not None:
+        plan = engine.plan_residency
+        monkeypatch.setattr(engine, "plan_residency",
+                            lambda *a, **k: dataclasses.replace(plan(*a, **k), order=order))
+    resident = forest.predict_margin_bins(torch.from_numpy(dm.single_page_bins()).to(dev))
+    runs = []
+    for f, d in ((forest, dm), (cpu_forest, cpu_dm)):
+        stats, sstats = TransferStats(), ServeStats()
+        out = engine.predict_margin_dmatrix(f, d, stats=stats, serve_stats=sstats, **kw)
+        runs.append((out, stats.host_to_device_bytes, sstats.chunk_hits, sstats.chunk_misses))
+    (card, *card_ledger), (cpu, *cpu_ledger) = runs
+    assert torch.equal(torch.from_numpy(card), resident.cpu())
+    assert np.array_equal(card, cpu)
+    assert card_ledger == cpu_ledger
+
+
+def test_forest_server_on_the_card_keeps_pins_across_requests(dev):
+    from repro_torch.serve import ForestServer, ServeStats
+
+    X, dm, forest = _served(dev)
+    resident = forest.predict_margin_bins(torch.from_numpy(dm.single_page_bins()).to(dev))
+    sstats = ServeStats()
+    per_chunk = NODE_BYTES * 4 * forest.n_total
+    worst = max(nr for _, nr in dm.page_set().page_extents)
+    server = ForestServer(forest, trees_per_chunk=4, serve_stats=sstats,
+                          serve_budget_bytes=worst * dm.num_features + 3 * per_chunk)
+    ledgers = []
+    for _ in range(2):
+        before = (sstats.chunk_hits, sstats.chunk_misses, sstats.h2d_bytes)
+        assert torch.equal(torch.from_numpy(server.predict_margin(dm)), resident.cpu())
+        ledgers.append([a - b for a, b in zip(
+            (sstats.chunk_hits, sstats.chunk_misses, sstats.h2d_bytes), before)])
+    assert server.cache.pinned_pages == 3
+    (hits_1, misses_1, h2d_1), (hits_2, misses_2, h2d_2) = ledgers
+    assert hits_2 >= hits_1 + 3 and misses_2 <= misses_1 - 3 and h2d_2 < h2d_1
+    # the resident forest equals the plain versions on the CPU
+    assert torch.equal(resident.cpu(), _on_cpu(forest).predict_margin_bins(
+        torch.from_numpy(dm.single_page_bins())))
+    # raw rows through the chunked server equal the resident forest's and the
+    # plain versions' on the CPU
+    got = server.predict_margin(X)
+    assert np.array_equal(got, forest.predict_margin(X))
+    assert np.array_equal(got, _on_cpu(forest).predict_margin(X))
+
+
+def test_forest_kernel_at_the_chunk_shape_with_a_chained_margin(dev):
+    """Kernel 3 at the paged forest's chunk shape (32 trees of depth 8 over
+    a 67,108-row page at 500 features): two chained chunks equal the plain
+    version chained the same way and the 64 trees in one launch."""
+    rng = np.random.default_rng(7)
+    n, m = 67_108, 500
+    bins = _bins(rng, n, m, 255, np.uint8).to(dev)
+    planes = [t.to(dev) for t in _forest_planes(rng, 64, 8, m, p_leaf=0.1, s_range=(0, 255))]
+    margin_in = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(dev)
+    out = want = margin_in
+    for lo in (0, 32):
+        chunk = [p[lo : lo + 32].contiguous() for p in planes]
+        out = k_forest.predict_forest(bins, *chunk, 8, out)
+        want = ref.predict_forest_bins(bins, *chunk, 8, want)
+    assert torch.equal(out, want)
+    assert torch.equal(out, k_forest.predict_forest(bins, *planes, 8, margin_in))
+
+
+@pytest.mark.parametrize("trees_per_chunk", [None, 5])
+def test_batch_server_on_the_card_equals_direct_predict(dev, trees_per_chunk):
+    """Single raw rows through the micro-batcher: the worker thread bins and
+    walks on the card; its answers equal a direct predict on the card and the
+    plain versions on the CPU bit for bit."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import BatchServer, ForestServer, ServeStats
+
+    X, _, forest = _served(dev)
+    rows = X[:300]
+    want = forest.predict_margin(rows)
+    server = ForestServer(forest, trees_per_chunk=trees_per_chunk)
+    stats = ServeStats()
+    reset_launch_counts()
+    with BatchServer(server.predict_margin, max_batch=64, max_delay_ms=2.0,
+                     stats=stats) as srv:
+        futures = [srv.submit(r) for r in rows]
+        got = np.asarray([f.result(timeout=60.0) for f in futures], np.float32)
+    counts = launch_counts()
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, _on_cpu(forest).predict_margin(rows))
+    assert stats.requests == 300 and stats.batches >= 5
+    assert min(counts["bin_values"], counts["predict_forest"]) >= stats.batches
