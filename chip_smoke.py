@@ -122,6 +122,31 @@ Phases, each of which fails the run on error:
      version, timed beside its bound: the second ``predict_forest`` row of
      the kernels line, whose launches are the chunked launches of (b).
 
+  10. best-first (lossguide) growth and the tiered histogram store, each
+     fit with the launch counts zeroed before and read after: (a) in core
+     on phase 2's matrix, depth 8, ``max_leaves=256``, ``pop_batch=1``, 4
+     trees, bit for bit phase 2's first 4 depthwise trees; (b) 64 leaves at
+     ``pop_batch`` 1 and 8, 4 trees each; (c) as (b) at ``pop_batch=1``
+     under ``hist_budget_bytes`` of 16 node histograms, ``retained_levels``
+     1 (bit for bit (b), with spills and a lower peak) and 2 (the
+     structural bar); (d) depth 12, 256 leaves on the first 300,000 rows:
+     ``mode="auto"`` at a budget of the byte model's fixed working set less
+     one node refuses without a histogram budget (the error is printed)
+     and decides ``in_core`` with 16 nodes of it; 2 trees stay within that
+     budget; kernel 3 bit for bit its plain version on that forest (8,191
+     nodes a tree) and on an 8-leaf one (255 nodes) over the eval rows;
+     (e) (after phase 9, on phase 6's 15 pages) a streaming tree of 16
+     leaves at ``pop_batch=4``, AUC within 1e-3 of an in-core fit at the
+     same settings, then the same fit again with kernels 1 and 2 held
+     against their plain versions on every page of their first four passes
+     (the same tree); (f) MVS at f = 0.1 on those pages, 64 leaves, 2
+     trees, AUC within 0.01 of the in-core fit at the same settings; then a
+     sampled fit at a budget between the sampled byte model and its
+     compacted page's capacity (ROADMAP queue 3; printed, not failed);
+     (g) (after phase 8's run B, on its shards) one elastic tree of 16
+     leaves, AUC within 1e-3 of a single-process streaming tree on phase
+     8's single-process pages.
+
 The streaming and sampled fits' device-memory peaks above their starts must
 stay within the budget their policy decided under (phases 6 and 6b). The card's compute mode must be
 Default: the elastic phase runs three processes on it.
@@ -292,6 +317,9 @@ def main(argv=None) -> int:
 
     # 3. kernels against their plain versions, at the paths' shapes ----------
     results = kernel_checks(args.seed, dev, dm, booster, X, Xe, loop_s / n_trees)
+
+    # 10 (a)-(d). best-first growth and the budgeted store in core ----------
+    lg_core_launches, lg_aucs = lossguide_in_core_phase(dev, dm, X, y, Xe, ye, booster, params)
     del dm
 
     # 4. determinism: two fits on a 200k-row subset grow identical trees ------
@@ -441,6 +469,10 @@ def main(argv=None) -> int:
         # 9. the serving tier on the same pages --------------------------------
         serving_launches, chunk_row = serving_phase(args.seed, dev, cache, booster, X, Xe)
 
+        # 10 (e)-(f). best-first growth streaming and sampled on the same pages
+        lg_paged_launches = lossguide_paged_phase(dev, cache, stream_params, Xe, ye, lg_aucs)
+        sampled_budget_check(dev, cache, stream_params)
+
     # 7. determinism of the streaming path ------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pages_") as cache:
         sub_batches = [(X[i : i + batch_rows], y[i : i + batch_rows]) for i in range(0, sub, batch_rows)]
@@ -463,16 +495,19 @@ def main(argv=None) -> int:
     del det
 
     # 8. elastic multi-worker path -------------------------------------------
-    elastic_launches, window_row = elastic_phase(args.seed, dev, params, elastic_path)
+    elastic_launches, window_row, lg_elastic_launches = elastic_phase(
+        args.seed, dev, params, elastic_path)
     results.insert(1, window_row)
 
-    # launches: the five paths' runs, each counted from zero (per path above);
+    # launches: the paths' runs (phase 10's lossguide fits among them), each
+    # counted from zero (per path above);
     # the chunk-shape row of predict_forest counts its chunked launches alone
     for r in results:
         r["launches"] = sum(
             path[r["name"]]
             for path in (in_core_launches, stream_launches, sampled_launches, elastic_launches,
-                         serving_launches)
+                         serving_launches, lg_core_launches, lg_paged_launches,
+                         lg_elastic_launches)
         )
     i = next(i for i, r in enumerate(results) if r["name"] == "predict_forest")
     results.insert(i + 1, chunk_row)
@@ -1032,10 +1067,11 @@ def chunk_kernel_check(seed: int, dev, bins, chunk) -> dict:
                 bound_ms=bound, bound_by=by, library_ms=None)
 
 
-def elastic_phase(seed: int, dev, params: dict, path_kernels) -> tuple[dict, dict]:
-    """Phase 8: the elastic multi-worker path (see the module docstring).
-    Returns the path's launch counts (coordinator plus run A's workers) and
-    the level-window kernel's row of the kernels line."""
+def elastic_phase(seed: int, dev, params: dict, path_kernels) -> tuple[dict, dict, dict]:
+    """Phase 8: the elastic multi-worker path (see the module docstring),
+    with phase 10 (g) after run B. Returns the path's launch counts
+    (coordinator plus run A's workers), the level-window kernel's row of the
+    kernels line and phase 10 (g)'s launch counts."""
     import numpy as np
     import torch
 
@@ -1142,6 +1178,7 @@ def elastic_phase(seed: int, dev, params: dict, path_kernels) -> tuple[dict, dic
             raise SystemExit("elastic forest's margins are not finite")
         if abs(elastic_auc - single_auc) > AUC_TOLERANCE:
             raise SystemExit(f"elastic AUC {elastic_auc} vs single-process {single_auc}")
+        lg_path = elastic_lossguide(dev, dirs, root, params, cfg, Xe, ye, a.cuts)
 
         elastic_transport_probe(dev, dirs[0], rpc.worker_s["hist"] / rpc.calls["hist"])
         host_pages = PagedDMatrix(dirs[0]).page_set().iter_pages()
@@ -1150,7 +1187,7 @@ def elastic_phase(seed: int, dev, params: dict, path_kernels) -> tuple[dict, dic
             pass
         row = window_kernel_check(seed, dev, page)
         split_chunk_check(seed, dev, page, a.cuts)
-    return path, row
+    return path, row, lg_path
 
 
 def elastic_transport_probe(dev, shard_dir: str, worker_pass_s: float) -> None:
@@ -1986,6 +2023,419 @@ def kernel_checks(seed: int, dev, dm, booster, X, Xe, per_tree_s: float) -> list
             f"library_ms={r['library_ms']}"
         )
     return results
+
+
+# ------------------------------------------------------- phase 10: lossguide
+def _add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _same_trees(a, b) -> bool:
+    """Two forests equal in every `TreeArrays` field, bit for bit."""
+    import torch
+
+    return len(a) == len(b) and all(
+        torch.equal(u, v) for ta, tb in zip(a, b) for u, v in zip(ta, tb)
+    )
+
+
+def _structurally_equal(a, b) -> bool:
+    """The structural bar of the reference's tests for chain-derived
+    histograms (f32 sums re-associated): the same leaves, at least 95% of the
+    splits, leaf values within rtol 1e-4 / atol 1e-5."""
+    import torch
+
+    for ta, tb in zip(a, b, strict=True):
+        if not torch.equal(ta.is_leaf, tb.is_leaf):
+            return False
+        same = (ta.feature == tb.feature) & (ta.split_bin == tb.split_bin)
+        if same.float().mean().item() < 0.95:
+            return False
+        if not torch.allclose(ta.leaf_value, tb.leaf_value, rtol=1e-4, atol=1e-5):
+            return False
+    return True
+
+
+def lossguide_in_core_phase(dev, dm, X, y, Xe, ye, booster, params: dict) -> tuple[dict, dict]:
+    """Phase 10 (a)-(d): best-first growth in core on phase 2's matrix (see
+    the module docstring). Returns the launch counts of its fits and the
+    eval AUCs of the in-core fits that (e) and (f) are held against."""
+    import torch
+
+    from repro_torch.core.booster import BoosterParams, GradientBooster
+    from repro_torch.core.ellpack import Binner
+    from repro_torch.core.objectives import auc
+    from repro_torch.core.policy import ExecutionPolicy
+    from repro_torch.data.dmatrix import ArrayDMatrix
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    total: dict = {}
+
+    def fit(label: str, n_trees: int, data=None, policy=None, eval_set=(Xe, ye), **kw):
+        """One lossguide fit with its launch counts zeroed before and read
+        after, its seconds a tree and its device-memory peak above start."""
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        b = GradientBooster(device=dev, policy=policy, **dict(
+            params, n_estimators=n_trees, grow_policy="lossguide", **kw))
+        # the boosting loop's own peak: from after the eval rows are binned
+        # (a transient of the raw rows that hides the histogram store)
+        eval_state, loop = b._eval_state, {}
+
+        def eval_then_mark(*a):
+            out = eval_state(*a)
+            torch.cuda.synchronize()
+            loop["peak_before"] = torch.cuda.max_memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            loop["base"] = torch.cuda.memory_allocated(dev)
+            return out
+
+        b._eval_state = eval_then_mark
+        b.fit(dm if data is None else data, eval_set=eval_set)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        loop_peak = torch.cuda.max_memory_allocated(dev)
+        peak = max(loop["peak_before"], loop_peak) - base
+        loop_peak -= loop["base"]
+        counts = launch_counts()
+        _add_counts(total, counts)
+        loop_s = b.eval_history[-1].elapsed_s if b.eval_history else fit_s
+        info = dict(per_tree=loop_s / len(b.trees), peak=peak, loop_peak=loop_peak, counts=counts,
+                    pops=[int((~t.is_leaf).sum()) for t in b.trees],
+                    auc=b.eval_history[-1].value if b.eval_history else None)
+        print(f"lossguide {label}: decision={b.decision_.mode} trees={len(b.trees)} "
+              f"n_total={b.trees[0].n_total} fit={fit_s:.3f} s per_tree={info['per_tree']:.4f} s "
+              f"pops a tree {info['pops']} kernel 1 launches="
+              f"{counts['build_histogram_nodes']} kernel 2 launches={counts['partition_rows']} "
+              f"eval_auc={info['auc']} peak above start={peak} B (boosting loop: "
+              f"{loop_peak} B above its start)")
+        return b, info
+
+    # (a) the full leaf budget of depth 8 equals the depthwise trees of phase 2
+    a, _ = fit("(a) max_leaves=256 pop_batch=1", 4, max_leaves=256, pop_batch=1)
+    if not _same_trees(a.trees, booster.trees[:4]):
+        raise SystemExit("lossguide at the full leaf budget differs from phase 2's depthwise "
+                         "trees")
+    print("lossguide (a): 4 trees == phase 2's first 4 depthwise trees (every field, bitwise)")
+
+    # (b) 64 leaves, one and eight pops a pass
+    b1, i1 = fit("(b) max_leaves=64 pop_batch=1", 4, max_leaves=64, pop_batch=1)
+    b8, i8 = fit("(b) max_leaves=64 pop_batch=8", 4, max_leaves=64, pop_batch=8)
+
+    # (c) the same under a budget of 16 node histograms, K = 1 and 2
+    node_bytes = ExecutionPolicy().memory_model(dm, b1.params).hist_node_bytes
+    hist_budget = 16 * node_bytes
+    for k in (1, 2):
+        pol = ExecutionPolicy(hist_budget_bytes=hist_budget, hist_retained_levels=k)
+        bc, ic = fit(f"(c) max_leaves=64 hist_budget_bytes={hist_budget} retained_levels={k}",
+                     4, policy=pol, max_leaves=64, pop_batch=1)
+        st, hs = bc.stats, bc.hist_cache.stats
+        print(f"lossguide (c) K={k}: hist_spills={st.hist_spills} hist_fetches={st.hist_fetches} "
+              f"hist_spill_bytes={st.hist_spill_bytes} hist_fetch_bytes={st.hist_fetch_bytes} "
+              f"chain_derived_nodes={hs.chain_derived_nodes} rebuilt_nodes={hs.rebuilt_nodes}; "
+              f"boosting-loop peak above its start {ic['loop_peak']} B against "
+              f"{i1['loop_peak']} B unbudgeted (one node {node_bytes} B; whole fits "
+              f"{ic['peak']} and {i1['peak']} B); per_tree {ic['per_tree']:.4f} s against "
+              f"{i1['per_tree']:.4f} s")
+        if k == 1:
+            if not _same_trees(bc.trees, b1.trees):
+                raise SystemExit("the budgeted store (K=1) grew other trees than the "
+                                 "unbudgeted one")
+            if not (st.hist_spills > 0 and ic["loop_peak"] < i1["loop_peak"]):
+                raise SystemExit(f"the budget did not spill or did not lower the boosting "
+                                 f"loop's peak: {st.hist_spills} spills, {ic['loop_peak']} "
+                                 f"vs {i1['loop_peak']} B")
+        elif not _structurally_equal(bc.trees, b1.trees):
+            raise SystemExit("the budgeted store (K=2) grew trees structurally unlike the "
+                             "unbudgeted one")
+    print("lossguide (c): K=1 trees == unbudgeted (bitwise); K=2 structurally equal")
+
+    # (d) depth 12, 256 leaves: refused without a histogram budget, in core with one
+    n_d = min(300_000, len(X))
+    dm_d = ArrayDMatrix(X[:n_d], y[:n_d], max_bin=256, cuts=booster.cuts, device=dev)
+    deep = dict(max_depth=12, max_leaves=256, pop_batch=1)
+    bp = BoosterParams(**dict(params, n_estimators=2, grow_policy="lossguide", **deep))
+    model = ExecutionPolicy(mode="auto").memory_model(dm_d, bp)
+    budget = model.fixed_bytes - model.hist_node_bytes
+    try:
+        ExecutionPolicy(mode="auto", memory_budget_bytes=budget).decide(dm_d, bp)
+    except ValueError as err:
+        print(f"lossguide (d): {n_d} rows, memory_budget_bytes={budget} without "
+              f"hist_budget_bytes: ValueError: {err}")
+    else:
+        raise SystemExit("the policy did not refuse depth 12 without a histogram budget")
+    pol = ExecutionPolicy(mode="auto", memory_budget_bytes=budget, hist_budget_bytes=hist_budget)
+    decision = pol.decide(dm_d, bp)
+    print(f"lossguide (d): with hist_budget_bytes={hist_budget}: {decision.mode} "
+          f"({decision.reason})")
+    if decision.mode != "in_core":
+        raise SystemExit(f"depth 12 with a histogram budget decided {decision.mode!r}")
+    bd, idd = fit("(d) depth 12 max_leaves=256", 2, data=dm_d, policy=pol, eval_set=None, **deep)
+    print(f"lossguide (d): hist_spills={bd.stats.hist_spills} "
+          f"hist_fetches={bd.stats.hist_fetches}; peak above start {idd['peak']} B within the "
+          f"budget {budget} B: {idd['peak'] <= budget}")
+    if bd.decision_.mode != "in_core" or idd["peak"] > budget:
+        raise SystemExit(f"depth 12 fit decided {bd.decision_.mode!r} or peaked {idd['peak']} "
+                         f"B over its {budget} B budget")
+    b8l, _ = fit("(d) depth 12 max_leaves=8", 2, data=dm_d, eval_set=None, max_depth=12,
+                 max_leaves=8)
+    eval_bins = Binner(booster.cuts, dev).to_device(Xe)
+    for label, b in (("256 leaves", bd), ("8 leaves", b8l)):
+        forest = b.packed_forest()
+        got = forest.predict_margin_bins(eval_bins)
+        if not torch.equal(got, _plain_margins(forest, eval_bins)):
+            raise SystemExit(f"kernel 3 differs from its plain version on the {label} "
+                             f"lossguide forest")
+        print(f"lossguide (d): kernel 3 == ref.predict_forest_bins on the {label} forest "
+              f"({forest.n_trees} trees x {forest.n_total} nodes, max_depth "
+              f"{forest.max_depth}, {eval_bins.shape[0]} eval rows; bitwise); eval_auc={auc(ye, got.cpu().numpy()):.6f}")
+    del dm_d, eval_bins
+
+    # the in-core fits that the paged legs (e) and (f) are held against
+    _, ie = fit("(e) reference: in core, max_leaves=16 pop_batch=4", 1, max_leaves=16, pop_batch=4)
+    _, if_ = fit("(f) reference: in core, max_leaves=64", 2, max_leaves=64)
+    print(f"lossguide phase (a)-(d): {time.perf_counter() - t_phase:.3f} s in all")
+    return total, dict(e=ie["auc"], f=if_["auc"])
+
+
+def _kernel_probes(max_pages: int):
+    """Wrap kernels 1 and 2 so that each of their first ``max_pages``
+    launches (pages of the first passes) is held against its plain version:
+    kernel 1 bit for bit against the fixed-point one, added into the running
+    page sum as the kernel adds; kernel 2 positions and counts bit for bit.
+    The wrappers launch each kernel once, as the fit would, and compare with
+    plain versions only. Returns (install, uninstall, tally)."""
+    import torch
+
+    from repro_torch.kernels import histogram as k_hist
+    from repro_torch.kernels import partition as k_part
+    from repro_torch.kernels import ref
+
+    orig_h, orig_p = k_hist.build_histogram_nodes, k_part.partition_rows
+    tally = dict(hist_pages=0, part_pages=0, err=0.0, node_lists=0, widest=0, max_build=0)
+
+    def hist_probe(bins, g, h, pos, nodes, n_bins, add_into=None):
+        if tally["hist_pages"] >= max_pages:
+            return orig_h(bins, g, h, pos, nodes, n_bins, add_into=add_into)
+        before = None if add_into is None else add_into.clone()
+        out = orig_h(bins, g, h, pos, nodes, n_bins, add_into=add_into)
+        fixed = ref.build_histogram_nodes_fixed(bins, g, h, pos, nodes, n_bins)
+        plain = ref.build_histogram_nodes(bins, g, h, pos, nodes, n_bins)
+        # f32 sums in row order stray from the fixed-point ones by rounding
+        # that grows with the magnitudes summed: held within 1e-5 of them
+        mag = ref.build_histogram_nodes(bins, g.abs(), h.abs(), pos, nodes, n_bins)
+        err = (fixed - plain).abs()
+        if not bool((err <= 1e-5 * (1.0 + mag)).all()):
+            raise SystemExit(f"kernel 1's fixed-point plain version strays from the f32 one "
+                             f"beyond 1e-5 of the magnitudes summed (max err "
+                             f"{err.max().item():.3g})")
+        tally["err"] = max(tally["err"], err.max().item())
+        if not torch.equal(out, fixed if before is None else before.add_(fixed)):
+            raise SystemExit(f"kernel 1 differs from its fixed-point plain version on a page "
+                             f"of a lossguide pass ({nodes.shape[0]} build nodes)")
+        tally["hist_pages"] += 1
+        tally["max_build"] = max(tally["max_build"], nodes.shape[0])
+        return out
+
+    def part_probe(bins, pos, feature, split_bin, default_left, is_leaf, count_level=None,
+                   counts=None):
+        if tally["part_pages"] >= max_pages:
+            return orig_p(bins, pos, feature, split_bin, default_left, is_leaf, count_level,
+                          counts)
+        before = None if counts is None else counts.clone()
+        out = orig_p(bins, pos, feature, split_bin, default_left, is_leaf, count_level, counts)
+        want = ref.partition_rows(bins, pos, feature, split_bin, default_left, is_leaf,
+                                  count_level, before)
+        if not (torch.equal(out, want) and (counts is None or torch.equal(counts, before))):
+            raise SystemExit(f"kernel 2 differs from its plain version on a page of a "
+                             f"lossguide pass (count window {count_level})")
+        if count_level is not None and count_level[1] > 2:  # the span of a node list
+            tally["node_lists"] += 1
+            tally["widest"] = max(tally["widest"], count_level[1])
+        tally["part_pages"] += 1
+        return out
+
+    def install():
+        k_hist.build_histogram_nodes, k_part.partition_rows = hist_probe, part_probe
+
+    def uninstall():
+        k_hist.build_histogram_nodes, k_part.partition_rows = orig_h, orig_p
+
+    return install, uninstall, tally
+
+
+def lossguide_paged_phase(dev, cache: str, params: dict, Xe, ye, core_auc: dict) -> dict:
+    """Phase 10 (e)-(f): best-first growth streaming and sampled on phase
+    6's pages (see the module docstring). Returns the launch counts of the
+    timed fits."""
+    import torch
+
+    from repro_torch.core.booster import GradientBooster
+    from repro_torch.core.policy import ExecutionPolicy
+    from repro_torch.core.sampling import SamplingConfig
+    from repro_torch.data.dmatrix import PagedDMatrix
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    total: dict = {}
+    sdm = PagedDMatrix(cache)
+    n_pages = sdm.n_pages
+    kw = dict(params, n_estimators=1, grow_policy="lossguide", max_leaves=16, pop_batch=4)
+    forced = ExecutionPolicy(mode="out_of_core")
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eb = GradientBooster(device=dev, policy=forced, **kw).fit(sdm, eval_set=(Xe, ye))
+    torch.cuda.synchronize()
+    e_s = time.perf_counter() - t0
+    counts = launch_counts()
+    _add_counts(total, counts)
+    st = eb.stats
+    e_auc = eb.eval_history[-1].value
+    print(f"lossguide (e) streaming: decision={eb.decision_.mode} pages={n_pages} "
+          f"max_leaves=16 pop_batch=4 fit={e_s:.3f} s per_tree={eb.eval_history[-1].elapsed_s:.4f} s "
+          f"pops={int((~eb.trees[0].is_leaf).sum())} pages_skipped={st.pages_skipped} "
+          f"h2d_GB={st.host_to_device_bytes / 1e9:.6f} fetch_s={st.stream_fetch_seconds:.6f} "
+          f"wall_s={st.stream_wall_seconds:.6f} launches {json.dumps(counts)}; eval_auc={e_auc:.6f} "
+          f"in-core at the same settings {core_auc['e']:.6f} "
+          f"|diff|={abs(e_auc - core_auc['e']):.6f}")
+    if eb.decision_.mode != "out_of_core":
+        raise SystemExit(f"the streaming lossguide fit decided {eb.decision_.mode!r}")
+    if abs(e_auc - core_auc["e"]) > AUC_TOLERANCE:
+        raise SystemExit(f"streaming lossguide AUC {e_auc} vs in-core {core_auc['e']}")
+
+    # the same fit again, kernels 1 and 2 held against their plain versions
+    # on every page of the first four passes of each
+    install, uninstall, tally = _kernel_probes(4 * n_pages)
+    install()
+    try:
+        again = GradientBooster(device=dev, policy=forced, **kw).fit(sdm)
+    finally:
+        uninstall()
+    if not _same_trees(again.trees, eb.trees):
+        raise SystemExit("two streaming lossguide fits on the same pages grew other trees")
+    print(f"lossguide (e) kernels: {tally['hist_pages']} kernel 1 launches (up to "
+          f"{tally['max_build']} build nodes) == the fixed-point plain version added page by "
+          f"page (bitwise; the f32 plain version within 1e-5 of the magnitudes summed, "
+          f"max_abs_err={tally['err']:.3g}), "
+          f"{tally['part_pages']} kernel 2 launches == the plain version, positions and "
+          f"counts ({tally['node_lists']} with a node list's span, widest "
+          f"{tally['widest']} slots); a second fit grew the same tree")
+
+    # (f) sampled: MVS at the paper's f on the same pages
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fb = GradientBooster(device=dev, policy=forced, sampling=SamplingConfig(
+        method="mvs", f=SAMPLING_F), **dict(params, n_estimators=2, grow_policy="lossguide",
+                                             max_leaves=64)).fit(sdm, eval_set=(Xe, ye))
+    torch.cuda.synchronize()
+    f_s = time.perf_counter() - t0
+    counts = launch_counts()
+    _add_counts(total, counts)
+    f_auc = fb.eval_history[-1].value
+    print(f"lossguide (f) sampled: decision={fb.decision_.mode} f={fb.decision_.sampling_f} "
+          f"max_leaves=64 2 trees fit={f_s:.3f} s per_tree="
+          f"{fb.eval_history[-1].elapsed_s / len(fb.trees):.4f} s h2d_GB a tree="
+          f"{fb.stats.host_to_device_bytes / len(fb.trees) / 1e9:.6f} launches "
+          f"{json.dumps(counts)}; eval_auc={f_auc:.6f}, in core at the same settings "
+          f"{core_auc['f']:.6f} |diff|={abs(f_auc - core_auc['f']):.6f}; (e) {e_auc:.6f}")
+    if fb.decision_.mode != "sampled":
+        raise SystemExit(f"the sampled lossguide fit decided {fb.decision_.mode!r}")
+    if abs(f_auc - core_auc["f"]) > SAMPLED_AUC_TOLERANCE:
+        raise SystemExit(f"sampled lossguide AUC {f_auc} vs in-core {core_auc['f']}")
+    print(f"lossguide phase (e)-(f): {time.perf_counter() - t_phase:.3f} s in all")
+    return total
+
+
+def elastic_lossguide(dev, dirs, root: str, params: dict, cfg, Xe, ye, cuts) -> dict:
+    """Phase 10 (g): one elastic lossguide tree on phase 8's shards against
+    a single-process streaming lossguide tree on the same rows and cuts
+    (phase 8's single-process page cache). Returns the path's launch counts
+    (coordinator and workers)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.booster import BoosterParams, GradientBooster
+    from repro_torch.core.objectives import auc
+    from repro_torch.core.policy import ExecutionPolicy
+    from repro_torch.data.dmatrix import PagedDMatrix
+    from repro_torch.distributed import ElasticTrainer
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    kw = dict(params, n_estimators=1, grow_policy="lossguide", max_leaves=16, pop_batch=1)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = ElasticTrainer(dirs, BoosterParams(**kw), checkpoint_dir=f"{root}/ckpt_lg",
+                        config=cfg, device=dev)
+    booster = tr.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    margin = booster.predict_margin(Xe)
+    path = launch_counts()
+    for counts in tr.worker_launches.values():
+        _add_counts(path, counts)
+    single = GradientBooster(device=dev, policy=ExecutionPolicy(mode="out_of_core"), **kw)
+    single.fit(PagedDMatrix(f"{root}/single"))
+    if not np.array_equal(single.cuts.values, cuts.values):
+        raise SystemExit("phase 8's single-process pages carry other cuts")
+    e_auc, s_auc = auc(ye, margin), auc(ye, single.predict_margin(Xe))
+    pops = int((~booster.trees[0].is_leaf).sum())
+    print(f"lossguide (g) elastic: max_leaves=16 pop_batch=1, 1 tree, fit={fit_s:.3f} s "
+          f"(2 worker starts included) per_tree_s={[round(t, 4) for t in tr.tree_seconds]} "
+          f"pops={pops} hist rpc {tr.rpc.calls['hist']} calls wall={tr.rpc.wall_s['hist']:.3f} s; "
+          f"workers {json.dumps(tr.worker_launches)}; eval_auc={e_auc:.6f} single-process "
+          f"streaming={s_auc:.6f} |diff|={abs(e_auc - s_auc):.6f}")
+    if not all(c["build_histogram"] > 0 and c["build_histogram_nodes"] == 0
+               for c in tr.worker_launches.values()):
+        raise SystemExit(f"the elastic lossguide workers did not build their windows with "
+                         f"kernel 4: {tr.worker_launches}")
+    if abs(e_auc - s_auc) > AUC_TOLERANCE:
+        raise SystemExit(f"elastic lossguide AUC {e_auc} vs single-process {s_auc}")
+    return path
+
+
+def sampled_budget_check(dev, cache: str, params: dict) -> None:
+    """The sampled byte model against the sampled fit's peak (ROADMAP queue
+    3): a budget midway between `sampled_bytes` (which counts int(n f) kept
+    rows) and the same plus the compacted page's capacity rows, with MVS
+    at the paper's f configured. Prints the decision and the peak above
+    start against the budget; the byte model is the reference's, unchanged,
+    so an overshoot is printed, not failed."""
+    import torch
+
+    from repro_torch.core.booster import BoosterParams, GradientBooster
+    from repro_torch.core.policy import ExecutionPolicy
+    from repro_torch.core.sampling import SamplingConfig
+    from repro_torch.data.dmatrix import PagedDMatrix
+
+    sdm = PagedDMatrix(cache)
+    cfg = SamplingConfig(method="mvs", f=SAMPLING_F)
+    bp = BoosterParams(**dict(params, n_estimators=2), sampling=cfg)
+    model = ExecutionPolicy().memory_model(sdm, bp)
+    modeled = model.sampled_bytes(sdm.n_rows, SAMPLING_F)
+    kept = int(sdm.n_rows * SAMPLING_F)
+    capacity = GradientBooster(bp, device=dev)._sampled_capacity(sdm.n_rows, cfg)
+    extra = (capacity - kept) * (sdm.num_features + model.row_state_bytes)
+    budget = modeled + extra // 2
+    pol = ExecutionPolicy(mode="auto", memory_budget_bytes=budget)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    b = GradientBooster(bp, device=dev, policy=pol).fit(sdm)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    print(f"sampled budget check: sampled_bytes={modeled} B ({kept} kept rows), compacted "
+          f"page {capacity} rows (+{extra} B), budget {budget} B -> decision "
+          f"{b.decision_.mode} f={b.decision_.sampling_f}; peak above start {peak} B, "
+          f"within the budget: {peak <= budget} (over by {max(0, peak - budget)} B)")
 
 
 if __name__ == "__main__":

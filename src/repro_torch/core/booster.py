@@ -35,8 +35,10 @@ elastic trainer (`repro_torch.distributed`).
 
 Everything runs on the CUDA device unless the caller passes
 ``device="cpu"``, which runs the plain PyTorch versions of the kernels on the
-host; asking for CUDA where there is none raises. Best-first growth and
-the budgeted histogram store are queued and raise `NotImplementedError`.
+host; asking for CUDA where there is none raises. Every engine grows
+depthwise or best-first (``grow_policy="lossguide"``, `core.tree`), and the
+policy's ``hist_budget_bytes`` bounds the device tier of the histogram store
+(`core.histcache`), whose spills and fetches land in ``stats``.
 
 Checkpoints use the reference's format (``model.npz``, ``booster.json``,
 ``manifest.json`` with CRC32), so a forest saved by `repro` loads here and
@@ -112,8 +114,10 @@ class CheckpointCorruptError(RuntimeError):
 class BoosterParams:
     """Model hyperparameters, with the reference's fields so its checkpoints
     load. ``kernel_impl`` is read for format compatibility and has no effect:
-    the device of the data picks kernel or plain version. ``max_leaves`` and
-    ``pop_batch`` only matter for best-first growth, which is queued."""
+    the device of the data picks kernel or plain version. ``max_leaves`` (0 =
+    up to the complete tree of ``max_depth``) and ``pop_batch`` (frontier
+    leaves popped per histogram pass) only matter for best-first growth,
+    ``grow_policy="lossguide"``."""
 
     n_estimators: int = 100
     learning_rate: float = 0.3
@@ -165,6 +169,8 @@ class BoosterParams:
             ),
             hist_subtraction=self.hist_subtraction,
             grow_policy=self.grow_policy,
+            max_leaves=self.max_leaves,
+            pop_batch=self.pop_batch,
         )
 
 
@@ -216,9 +222,15 @@ class GradientBooster:
         self.margins_: Tensor | None = None  # (n_rows,) f32 on the device
         self._device_cache = None
 
-    def _make_hist_store(self) -> HistogramStore:
+    def _make_hist_store(self, transfer_stats: TransferStats | None = None) -> HistogramStore:
+        """A histogram store with this booster's policy knobs; ``transfer_stats``
+        shares its spill and fetch ledger (the fit's, or the page set's)."""
         return HistogramStore(
-            enabled=self.params.hist_subtraction, budget_bytes=self.policy.hist_budget_bytes
+            enabled=self.params.hist_subtraction,
+            budget_bytes=self.policy.hist_budget_bytes,
+            retained_levels=self.policy.hist_retained_levels,
+            transfer_stats=transfer_stats,
+            retry=self.policy.retry,
         )
 
     # ------------------------------------------------------------------ fit
@@ -321,8 +333,15 @@ class GradientBooster:
     ) -> "GradientBooster":
         p, dev = self.params, self.device
         tp = p.tree_params()
-        self.stats = TransferStats()
-        self.hist_cache = self._make_hist_store()
+        if start_iteration == 0:
+            # a fresh ledger for this fit, which the store's spills share
+            self.stats = TransferStats()
+            self.hist_cache = self._make_hist_store(self.stats)
+        else:
+            # a resumed fit keeps its store and ledger, as the reference does
+            if self.stats is None:
+                self.stats = TransferStats()
+            self.hist_cache.transfer_stats = self.stats
         labels = dm.require_labels()
         n_bins = dm.n_bins
         bin_valid = bin_valid_from_cuts(dm.cuts, n_bins, dev)
@@ -361,10 +380,12 @@ class GradientBooster:
         return self
 
     # ----------------------------------------------- Alg. 6 (streaming path)
-    def _stream(self):
-        """One `PageStream` pass over the last external fit's page set."""
+    def _stream(self, indices=None):
+        """One `PageStream` pass over the last external fit's page set, or
+        over the pages ``indices`` of it."""
         return self.pages.stream(
             device=self.device,
+            indices=indices,
             prefetch_depth=self.policy.prefetch_depth,
             staging_depth=self.policy.staging_depth,
             cache=self._device_cache,
@@ -382,7 +403,10 @@ class GradientBooster:
         pages = dm.page_set()
         self.pages = pages
         self.stats = pages.stats
-        self.hist_cache = self._make_hist_store()
+        if start_iteration == 0:
+            self.hist_cache = self._make_hist_store(pages.stats)
+        else:
+            self.hist_cache.transfer_stats = pages.stats
         n_bins = dm.n_bins
         bin_valid = bin_valid_from_cuts(dm.cuts, n_bins, dev)
         labels_t = torch.from_numpy(labels).to(dev)
@@ -479,6 +503,7 @@ class GradientBooster:
         tree, positions = build_tree_paged(
             self._stream, extents, g, h, n_bins, bin_valid, tp,
             cuts.values, cuts.ptrs, hist_cache=self.hist_cache,
+            page_skipping=self.policy.page_skipping,
         )
         # final positions point at leaves: the margin update needs no pass
         pos = torch.cat([positions[i] for i in range(len(extents))])

@@ -19,7 +19,7 @@ The histogram term is depth-honest: the paper's fixed ``2^(d-1)`` snapshot
 ignores both the compact build half that coexists during sibling expansion
 and the ancestor levels the subtraction cache retains — exactly the bytes
 that OOM deep trees. `histogram_bytes(depth, retained_levels)` models the
-peak working set of the reference `HistogramStore`, and ``hist_budget_bytes``
+peak working set of `core.histcache.HistogramStore`, and ``hist_budget_bytes``
 caps the *retained* (spillable) share at the store's device budget, so
 `ExecutionPolicy` decisions stay honest when spilling is enabled.
 """

@@ -3,7 +3,8 @@
 Counterpart of `repro.core.policy`. The decision procedure is the
 reference's, unchanged, and `GradientBooster.fit` trains each of its three
 decisions. The policy also carries the streaming knobs (prefetch and staging depths,
-device page cache, checkpoint cadence) and the I/O retry policy.
+per-node page skipping, device page cache, checkpoint cadence) and the I/O
+retry policy, which the histogram store's fetch shares.
 
 The paper's decision procedure, as a config object: given a `DMatrix` and the
 booster hyperparameters, consult the Table-1 byte model (`DeviceMemoryModel`)
@@ -88,6 +89,10 @@ class ExecutionPolicy:
     # streaming-engine knobs (see repro_torch.pipeline.PageStream)
     prefetch_depth: int = 2
     staging_depth: int = 2
+    # lossguide out of core: a pop's repartition and histogram passes skip
+    # the pages with no row in the popped nodes (no fetch, no staging);
+    # counted in TransferStats.pages_skipped
+    page_skipping: bool = True
     # device page cache of the external engines: None = auto (every page
     # on the sampled path when there are at most 8; none on the streaming
     # path, whose LRU scans would evict every page right before its reuse);

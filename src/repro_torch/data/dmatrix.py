@@ -87,8 +87,12 @@ class PageSet:
         codec: str | None = None,
         cache_tag: str = "page",
         stats: TransferStats | None = None,
+        indices: Iterable[int] | None = None,
     ) -> PageStream:
-        """One pass of the pipeline engine over every page onto ``device``.
+        """One pass of the pipeline engine over every page onto ``device``, or
+        over the pages ``indices`` only (each keeps its global index, so
+        per-page state keyed by it stays valid: the page-skipping passes of
+        lossguide builds).
 
         ``retry`` is the prefetcher's `RetryPolicy` (None = its defaults).
         ``codec`` names a page codec; only raw pages are ported, so anything
@@ -112,12 +116,12 @@ class PageSet:
             retry=retry,
         )
         if self.host_pages is not None:
-            return PageStream.from_host_pages(self.host_pages, **common)
+            return PageStream.from_host_pages(self.host_pages, indices=indices, **common)
 
         def wrap(idx: int, arrays: dict) -> EllpackPage:
             return EllpackPage(bins=arrays["bins"], row_offset=self.row_offsets[idx])
 
-        return PageStream.from_store(self.store, wrap, **common)
+        return PageStream.from_store(self.store, wrap, indices=indices, **common)
 
     def iter_pages(self, prefetch_depth: int = 2) -> Iterator[tuple[int, EllpackPage]]:
         """Host-side pass (no device staging); disk pages go through the prefetcher."""

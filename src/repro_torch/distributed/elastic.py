@@ -7,10 +7,13 @@ so a worker that dies is a dead OS process, not a mocked exception. The
 workers share the coordinator's device: on a card each opens its own CUDA
 context there (the card's compute mode must allow several processes).
 
-  the growth driver         the coordinator runs `core.tree
-                            .grow_tree_generic` like every other builder;
-                            its HistFn sums the per-shard histograms the
-                            workers return (kernel 4, one launch per page) in
+  the growth driver         the coordinator runs the driver of
+                            `core.tree.tree_growth_driver` (depthwise or
+                            lossguide) like every other builder; its HistFn
+                            sums the per-shard histograms of one level
+                            window or popped node's 2-node window, which the
+                            workers return (kernel 4 with the plan's
+                            ``node_map``, one launch per page) in
                             shard-id order, in numpy f32, so the total does
                             not depend on which worker serves a shard; its
                             PartitionFn broadcasts the split arrays and sums
@@ -70,7 +73,7 @@ from repro_torch.core.booster import (
 from repro_torch.core.histcache import HistogramStore
 from repro_torch.core.policy import sampling_requested
 from repro_torch.core.quantile import HistogramCuts
-from repro_torch.core.tree import TreeArrays, grow_tree_generic
+from repro_torch.core.tree import TreeArrays, tree_growth_driver
 from repro_torch.data.pages import TransferStats
 from repro_torch.fault import inject as fault_inject
 from repro_torch.fault.retry import RetryPolicy
@@ -424,7 +427,11 @@ class ElasticTrainer:
         self._saved = False  # a checkpoint from THIS run exists on disk
         self._workdir = f"{checkpoint_dir}.workers"
         self.base_margin_: float | None = None
-        self._hist_store = HistogramStore(enabled=params.hist_subtraction)
+        self._hist_store = HistogramStore(
+            enabled=params.hist_subtraction,
+            transfer_stats=self.stats,
+            retry=self.cfg.retry,
+        )
 
         # shard 0's sidecar is the authoritative quantisation for the run
         # (prepare_shards wrote every shard with identical cuts)
@@ -607,7 +614,7 @@ class ElasticTrainer:
 
         def hist_fn(offset: int, count: int, plan) -> torch.Tensor:
             node_map = None if plan.node_map is None else plan.node_map.cpu().numpy()
-            depth = count.bit_length() - 1
+            depth = (offset + 1).bit_length() - 1  # of the window's first node
             total: np.ndarray | None = None
             for sid in sorted(self._owner):
                 rep = self._request(
@@ -644,7 +651,7 @@ class ElasticTrainer:
                     counts = c if counts is None else counts + c
             return None if counts is None else torch.from_numpy(counts).to(dev)
 
-        return grow_tree_generic(
+        return tree_growth_driver(tp)(
             hist_fn,
             partition_fn,
             torch.tensor(total_g, dtype=torch.float32, device=dev),

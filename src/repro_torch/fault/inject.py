@@ -21,6 +21,8 @@ Instrumented sites of the port:
   "elastic.rpc"                 ctx: worker, op     (repro_torch.distributed
                                 .elastic_worker, before each op)
   "elastic.worker.iteration"    ctx: worker, iteration  (at each begin_tree)
+  "hist_store.fetch"            ctx: -              (repro_torch.core
+                                .histcache, once per staging try)
 
 Triggering is deterministic by construction: each site keeps a call counter
 and a spec fires when the counter lands in ``[at, at + count)`` (``count=-1``

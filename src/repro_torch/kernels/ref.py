@@ -72,14 +72,33 @@ def _hist_cells(bins, slot, n_bins: int):
         yield (s * (m * n_bins) + feat + b)[valid] * 2, torch.nonzero(valid)[:, 0] + lo
 
 
+def _index_add_(out: torch.Tensor, index: torch.Tensor, values: torch.Tensor) -> None:
+    """``out.index_add_(0, index, values)`` with one order of the f32 adds on
+    every call. On a CUDA tensor that is PyTorch's deterministic version (a
+    stable sort of the indices, then each cell's adds in index order, the
+    CPU's order): its default float atomics add in an order set by timing,
+    and gave other sums from call to call on the H100."""
+    if not out.is_cuda:
+        out.index_add_(0, index, values)
+        return
+    mode = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        out.index_add_(0, index, values)
+    finally:
+        torch.use_deterministic_algorithms(mode, warn_only=warn_only)
+
+
 def _scatter_histogram(bins, g, h, slot, n_slots: int, n_bins: int) -> torch.Tensor:
     """``out[s, f, b] = (sum g, sum h)`` over rows with ``slot == s`` whose
-    bin of feature f is ``b != MISSING_BIN``; slot -1 matches nothing."""
+    bin of feature f is ``b != MISSING_BIN``; slot -1 matches nothing. Each
+    cell adds its rows in row order."""
     m = bins.shape[1]
     out = torch.zeros(n_slots * m * n_bins * 2, dtype=torch.float32, device=bins.device)
     for cell, rows in _hist_cells(bins, slot, n_bins):
-        out.index_add_(0, cell, g[rows].to(torch.float32))
-        out.index_add_(0, cell + 1, h[rows].to(torch.float32))
+        _index_add_(out, cell, g[rows].to(torch.float32))
+        _index_add_(out, cell + 1, h[rows].to(torch.float32))
     return out.reshape(n_slots, m, n_bins, 2)
 
 

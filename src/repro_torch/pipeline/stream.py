@@ -192,19 +192,25 @@ class PageStream:
 
     # ------------------------------------------------------------ constructors
     @classmethod
-    def from_host_pages(cls, pages: Sequence[Any], **kw) -> "PageStream":
-        """Stream pages already resident in host RAM (no prefetch thread)."""
+    def from_host_pages(
+        cls, pages: Sequence[Any], indices: Iterable[int] | None = None, **kw
+    ) -> "PageStream":
+        """Stream pages already resident in host RAM (no prefetch thread);
+        ``indices`` restricts the pass to a subset, each page keeping its
+        global index."""
         kw.setdefault("threaded", False)
-        return cls(pages.__getitem__, range(len(pages)), **kw)
+        return cls(pages.__getitem__, indices if indices is not None else range(len(pages)), **kw)
 
     @classmethod
     def from_store(
         cls,
         store: PageStore,
         wrap: Callable[[int, dict], Any] | None = None,
+        indices: Iterable[int] | None = None,
         **kw,
     ) -> "PageStream":
-        """Stream a disk `PageStore`; ``wrap(idx, arrays)`` builds the host page."""
+        """Stream a disk `PageStore`; ``wrap(idx, arrays)`` builds the host
+        page; ``indices`` restricts the pass as in `from_host_pages`."""
 
         def fetch(idx: int) -> Any:
             arrays = store.read_page(idx)
@@ -212,7 +218,7 @@ class PageStream:
 
         kw.setdefault("threaded", True)
         kw.setdefault("stats", store.stats)
-        return cls(fetch, range(store.n_pages), **kw)
+        return cls(fetch, indices if indices is not None else range(store.n_pages), **kw)
 
     # --------------------------------------------------------------- host pass
     def _source(self) -> Iterator[tuple[int, Any]]:

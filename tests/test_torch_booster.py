@@ -176,10 +176,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, fitted, tmp_pat
     "lossguide", "out_of_core", "hist_budget",
 ])
 def test_unported_paths_raise_not_implemented(case, data, tmp_path):
-    """Out-of-core streaming and sampling train now; the unported corners
-    still raise: a page cache the reference wrote compressed
-    ("out_of_core")."""
-    X, y, _, _ = data
+    """The one unported corner still raises: a page cache the reference
+    wrote compressed ("out_of_core"). Best-first growth ("lossguide") and
+    the budgeted histogram store ("hist_budget") are ported: they fit the
+    reference's trees, and the budgeted fit books the reference's spills."""
+    from repro.core.policy import ExecutionPolicy as JPolicy
+
+    X, y, Xe, _ = data
     kw = dict(PARAMS, n_estimators=1)
     if case == "out_of_core":
         cache = str(tmp_path / "bitpack")
@@ -188,11 +191,20 @@ def test_unported_paths_raise_not_implemented(case, data, tmp_path):
         with pytest.raises(NotImplementedError, match="item 8"):
             b.fit(PagedDMatrix(cache))
         return
-    policy = ExecutionPolicy(hist_budget_bytes=1 << 20) if case == "hist_budget" else None
+    kw.update(n_estimators=2, objective="binary:logistic")
+    policy, jpolicy = ExecutionPolicy(), JPolicy()
+    if case == "hist_budget":
+        policy, jpolicy = ExecutionPolicy(hist_budget_bytes=4096), JPolicy(hist_budget_bytes=4096)
     if case == "lossguide":
         kw.update(grow_policy="lossguide", max_leaves=4)
-    with pytest.raises(NotImplementedError):
-        GradientBooster(device="cpu", policy=policy, **kw).fit(X, y)
+    port = GradientBooster(device="cpu", policy=policy, **kw).fit(X, y)
+    ref = JBooster(policy=jpolicy, **kw).fit(X, y)
+    assert_forests_equal(port.trees, ref.trees)
+    np.testing.assert_allclose(port.predict_margin(Xe), np.asarray(ref.predict_margin(Xe)),
+                               rtol=1e-5, atol=1e-5)
+    for f in ("hist_spills", "hist_fetches", "hist_spill_bytes", "hist_fetch_bytes"):
+        assert getattr(port.stats, f) == getattr(ref.stats, f), f
+    assert (port.stats.hist_spills > 0) == (case == "hist_budget")
 
 
 def test_fit_accepts_dmatrix_and_pinned_cuts(data):

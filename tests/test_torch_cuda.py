@@ -878,3 +878,153 @@ def test_batch_server_on_the_card_equals_direct_predict(dev, trees_per_chunk):
     assert np.array_equal(got, _on_cpu(forest).predict_margin(rows))
     assert stats.requests == 300 and stats.batches >= 5
     assert min(counts["bin_values"], counts["predict_forest"]) >= stats.batches
+
+
+# ------------------------------------------------ lossguide and the budgeted store
+def test_inflight_spill_then_fetch_is_exact(dev):
+    """A fetch issued while the spill's copy may still be in flight waits on
+    the copy's event: the bits come back exact for every spilled node, also
+    beside a spill abandoned mid-flight."""
+    from repro_torch.core.histcache import HistogramStore
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    store = HistogramStore(budget_bytes=0)
+    nodes = {k: torch.randn((500, 255, 2), generator=gen, device=dev) for k in range(1, 6)}
+    want = {k: v.clone() for k, v in nodes.items()}
+    for k, v in nodes.items():
+        store.put_node(k, v)  # budget 0: spilled at once, asynchronously
+        assert store.tier_of(("N", k)) == "host"
+    del nodes
+    store.discard_node(5)  # abandoned in flight
+    for k in (4, 1, 3, 2):
+        got = store._fetch(("N", k), dev)
+        assert got.is_cuda and torch.equal(got, want[k]), k
+    assert store.transfer_stats.hist_spills == 5 and store.transfer_stats.hist_fetches == 4
+
+
+@pytest.mark.parametrize("span", [3000, 6000])
+def test_batched_pop_build_sets_past_the_id_table(dev, span):
+    """Batched lossguide pops at depth 12 give non-contiguous build sets whose
+    ids span more than the kernel's 4,096-id table (the search path): kernel
+    1 equals its fixed-point plain version; the partition counts the span
+    window of the popped children (past 2,048 count slots at 6,000) and the
+    listed nodes gathered from it equal `node_row_counts`."""
+    from repro_torch.core.histcache import count_span, new_level_counts, node_row_counts
+    from repro_torch.core.histcache import take_counts
+
+    rng = np.random.default_rng(span)
+    n, m, n_bins = 120_000, 40, 64
+    parents = sorted(rng.choice(np.arange(2047, 2047 + span // 2), 8, replace=False).tolist())
+    parents[0], parents[-1] = 2047, 2047 + span // 2 - 1
+    kids = [2 * p + 1 + c for p in parents for c in (0, 1)]
+    bins = _bins(rng, n, m, n_bins, np.uint8).to(dev)
+    g = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(dev)
+    h = torch.from_numpy(rng.random(n).astype(np.float32)).to(dev)
+    pos = torch.from_numpy(rng.choice(parents + [5, 9000], n).astype(np.int32)).to(dev)
+    n_nodes = 2 ** 13 - 1 + span
+    tree = (
+        torch.from_numpy(rng.integers(0, m, n_nodes).astype(np.int32)).to(dev),
+        torch.from_numpy(rng.integers(0, n_bins, n_nodes).astype(np.int32)).to(dev),
+        torch.from_numpy(rng.random(n_nodes) < 0.5).to(dev),
+        torch.ones(n_nodes, dtype=torch.bool, device=dev),
+    )
+    tree[3][torch.tensor(parents, device=dev)] = False
+    counts = new_level_counts(kids, dev)
+    assert counts.shape[0] == count_span(kids)[1] == kids[-1] - kids[0] + 1
+    moved = k_part.partition_rows(bins, pos, *tree, count_span(kids), counts)
+    assert torch.equal(moved, ref.partition_rows(bins, pos, *tree))
+    nodes = torch.tensor(kids, dtype=torch.int32, device=dev)
+    assert torch.equal(take_counts(kids, counts), node_row_counts(moved, nodes))
+    build = nodes[::2].contiguous()
+    assert int(build[-1] - build[0]) >= 4096 or span < 4096
+    got = k_hist.build_histogram_nodes(bins, g, h, moved, build, n_bins)
+    assert torch.equal(got, ref.build_histogram_nodes_fixed(bins, g, h, moved, build, n_bins))
+
+
+@pytest.mark.parametrize("max_depth,max_leaves", [(12, 8), (12, 256), (6, 0)])
+def test_lossguide_fit_on_the_card_matches_the_cpu_and_kernel_3(dev, max_depth, max_leaves):
+    """Lossguide forests on the card, arrays sized by ``effective_max_depth``
+    (255 nodes at 8 leaves; 8,191 at depth 12 and 256 leaves): kernel 3
+    equals its plain version bit for bit, and a full-budget tree the
+    depthwise one. The 8-leaf fit also equals the CPU fit; the deep fits
+    reach nodes of a few rows, whose splits and leaves the card's
+    fixed-point sums and the CPU's f32 sums tie-break and round apart."""
+    X, y = make_classification(20_000, 30, seed=2)
+    kw = dict(n_estimators=2, max_depth=max_depth, max_bin=64, objective="binary:logistic",
+              grow_policy="lossguide", max_leaves=max_leaves, pop_batch=4)
+    card = GradientBooster(device="cuda", **kw).fit(X, y)
+    assert card.trees[0].n_total == card.params.tree_params().n_total_nodes
+    if max_leaves == 8:
+        cpu = GradientBooster(device="cpu", **kw).fit(X, y)
+        assert_forests_equal([type(t)(*[a.cpu() for a in t]) for t in card.trees], cpu.trees)
+    forest = card.packed_forest()
+    bins = forest.quantize(X[:5000])
+    scaled = torch.tensor(forest.learning_rate, dtype=torch.float32, device=dev) * forest.leaf_value
+    want = ref.predict_forest_bins(bins, forest.feature, forest.split_bin, forest.default_left,
+                                   forest.is_leaf, scaled, forest.max_depth,
+                                   forest._base(bins.shape[0]))
+    assert torch.equal(forest.predict_margin_bins(bins), want)
+    if max_leaves == 0:
+        dw = GradientBooster(device="cuda", **dict(kw, grow_policy="depthwise")).fit(X, y)
+        for a, b in zip(card.trees, dw.trees):
+            for f in a._fields:
+                assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_budgeted_lossguide_fit_on_the_card_equals_unbudgeted(dev):
+    X, y = make_classification(20_000, 30, seed=4)
+    kw = dict(n_estimators=2, max_depth=8, max_bin=64, objective="binary:logistic",
+              grow_policy="lossguide", max_leaves=32)
+    node = 30 * 64 * 2 * 4
+    free = GradientBooster(device="cuda", **kw).fit(X, y)
+    tight = GradientBooster(device="cuda", policy=ExecutionPolicy(hist_budget_bytes=4 * node),
+                            **kw).fit(X, y)
+    assert tight.stats.hist_spills > 0 and tight.stats.hist_fetches > 0
+    for a, b in zip(tight.trees, free.trees):
+        for f in a._fields:
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+# ------------------------------------------ repeatability of library ops on the card
+def _same_bits(fn, calls: int = 30) -> bool:
+    first = fn()
+    return all(torch.equal(fn(), first) for _ in range(calls - 1))
+
+
+@pytest.mark.parametrize("n_nodes", [2, 16, 128])
+def test_split_scan_same_bits_every_call(dev, n_nodes):
+    """`evaluate_splits` scans each (node, feature) over its bins with
+    ``torch.cumsum(hist, dim=2)``: lossguide's frontier order rests on the
+    gains it gives, so it must give the same bits on every call."""
+    gen = torch.Generator(device=dev).manual_seed(n_nodes)
+    hist = torch.randn((n_nodes, 500, 255, 2), generator=gen, device=dev)
+    assert _same_bits(lambda: torch.cumsum(hist, dim=2))
+
+
+@pytest.mark.parametrize("n", [1_000_000])
+def test_sampling_sorts_same_bits_every_call(dev, n):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    g = torch.randn(n, generator=gen, device=dev)
+    assert _same_bits(lambda: torch.sort(torch.abs(g)).values)  # GOSS
+    assert _same_bits(lambda: torch.sort(g.square()).values)  # MVS
+
+
+def test_plain_scatters_same_bits_every_call(dev):
+    """The plain versions' scatters on the card at a 32 MiB page's shape
+    (67,108 rows x 500 features, 64 build nodes): the f32 and fixed-point
+    histograms and the partition's row counts. The f32 one adds each cell's
+    rows in row order (`ref._index_add_`), so it also equals the CPU's."""
+    rng = np.random.default_rng(0)
+    n, m, n_bins = 67_108, 500, 255
+    bins = _bins(rng, n, m, n_bins, np.uint8).to(dev)
+    g = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(dev)
+    h = torch.from_numpy(rng.random(n).astype(np.float32)).to(dev)
+    pos = torch.from_numpy(rng.integers(63, 127, n).astype(np.int32)).to(dev)
+    nodes = torch.arange(63, 127, dtype=torch.int32, device=dev)
+    assert _same_bits(lambda: ref.build_histogram_nodes(bins, g, h, pos, nodes, n_bins))
+    assert _same_bits(lambda: ref.build_histogram_nodes_fixed(bins, g, h, pos, nodes, n_bins))
+    assert _same_bits(lambda: ref.level_row_counts(pos, 63, 64))
+    cpu = [t.cpu() for t in (bins[:4096], g[:4096], h[:4096], pos[:4096], nodes)]
+    assert torch.equal(ref.build_histogram_nodes(*cpu, n_bins),
+                       ref.build_histogram_nodes(bins[:4096], g[:4096], h[:4096], pos[:4096],
+                                                 nodes, n_bins).cpu())

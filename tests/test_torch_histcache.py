@@ -77,8 +77,36 @@ def test_disabled_store_always_builds_everything():
 
 
 def test_budgeted_store_is_queued():
-    with pytest.raises(NotImplementedError, match="budget"):
-        HistogramStore(budget_bytes=1 << 20)
+    """A budgeted store (ported since this test was named) plans and expands
+    every level as the unbudgeted one does, bit for bit, and resolves and
+    books its spills as the reference's store under the same budget."""
+    for budget in (0, 300, 1 << 20):
+        _check_budgeted_store(budget)
+
+
+def _check_budgeted_store(budget: int) -> None:
+    rng = np.random.default_rng(budget)
+    m, n_bins = 3, 4  # one node is 96 bytes
+    free, tight, jtight = HistogramStore(), HistogramStore(budget_bytes=budget), JStore(
+        budget_bytes=budget
+    )
+    for count in (1, 2, 4, 8, 16):
+        counts = None if count == 1 else rng.integers(0, 50, count).astype(np.int32)
+        tc = None if counts is None else torch.from_numpy(counts)
+        want = free.plan(count, tc, CPU)
+        got = tight.plan(count, tc, CPU)
+        jgot = jtight.plan(count, None if counts is None else jnp.asarray(counts))
+        assert got.source == jgot.source
+        assert got.n_build == want.n_build
+        np.testing.assert_array_equal(got.build_nodes.numpy(), want.build_nodes.numpy())
+        built = rng.normal(size=(got.n_build, m, n_bins, 2)).astype(np.float32)
+        full = tight.expand(got, torch.from_numpy(built)).numpy()
+        np.testing.assert_array_equal(full, free.expand(want, torch.from_numpy(built)).numpy())
+        np.testing.assert_array_equal(full, np.asarray(jtight.expand(jgot, jnp.asarray(built))))
+        assert tight.device_bytes == jtight.device_bytes <= budget
+    for f in ("hist_spills", "hist_fetches", "hist_spill_bytes", "hist_fetch_bytes"):
+        assert getattr(tight.transfer_stats, f) == getattr(jtight.transfer_stats, f), f
+    assert (tight.transfer_stats.hist_spills > 0) == (budget < 16 * m * n_bins * 2 * 4)
 
 
 def test_subtraction_tree_matches_full_build(small_classification):
