@@ -147,6 +147,30 @@ Phases, each of which fails the run on error:
      leaves, AUC within 1e-3 of a single-process streaming tree on phase
      8's single-process pages.
 
+  11. compression (`repro_torch.compress`): (a) (after phase 10 (f), on
+     phase 6's pages) the bitpack decode kernel bit for bit against its
+     plain version at bits 1-8, with and without missing values, at row
+     widths that do not fill a byte and with an all-missing row, then on
+     phase 6's first page (67,108 x 500, 8 bits), timed beside its bound (the
+     packed read plus the uint8 write) and the plain version: the
+     ``bitpack_decode`` row of the kernels line; (b) (after phase 8) 200,000
+     fresh rows x 500 with 5% missing at ``max_bin=32`` (6-bit symbols) in 32
+     MiB pages, written raw, ``bitpack`` and ``delta-rle``; 2 depth-8 trees
+     out of core on each, trees and margins bit for bit the raw run's, the
+     bitpack run's wire/logical bytes at most 0.76 and one decode launch a
+     staged page; then in core on the same rows raw and with
+     ``page_codec="bitpack"``, trees bit for bit, each peak printed beside
+     the byte model's ``in_core_bytes``; (c) (after phase 10 (d), on phase
+     2's matrix) phase 10 (c)'s lossguide fit (64 leaves, 16 node
+     histograms of budget, 4 trees) with ``grad_transport`` raw, f16, bf16
+     and int8: each spill a half, a half and a quarter of a raw spill's
+     bytes, eval AUC within 0.02 of raw (the reference's bound), two int8
+     fits identical; (d) (after phase 9) phase 9's 256-tree forest through
+     ``ForestServer(trees_per_chunk=32, page_codec="bitpack")`` over the eval
+     rows, bit for bit the raw server, each chunk's wire bytes 14/24 of raw
+     (228,928 against 392,448 B), and a pinned server whose second request
+     stages nothing.
+
 The streaming and sampled fits' device-memory peaks above their starts must
 stay within the budget their policy decided under (phases 6 and 6b). The card's compute mode must be
 Default: the elastic phase runs three processes on it.
@@ -320,6 +344,9 @@ def main(argv=None) -> int:
 
     # 10 (a)-(d). best-first growth and the budgeted store in core ----------
     lg_core_launches, lg_aucs = lossguide_in_core_phase(dev, dm, X, y, Xe, ye, booster, params)
+
+    # 11 (c). the histogram spill's quantized transports on the same matrix
+    grad_launches = compression_grad_phase(dev, dm, Xe, ye, params)
     del dm
 
     # 4. determinism: two fits on a 200k-row subset grow identical trees ------
@@ -467,11 +494,18 @@ def main(argv=None) -> int:
         )
 
         # 9. the serving tier on the same pages --------------------------------
-        serving_launches, chunk_row = serving_phase(args.seed, dev, cache, booster, X, Xe)
+        serving_launches, chunk_row, served = serving_phase(args.seed, dev, cache, booster, X, Xe)
+
+        # 11 (d). the served forest's chunks through the forest transport
+        serve_codec_launches = compression_serving_phase(dev, served, Xe)
+        del served
 
         # 10 (e)-(f). best-first growth streaming and sampled on the same pages
         lg_paged_launches = lossguide_paged_phase(dev, cache, stream_params, Xe, ye, lg_aucs)
         sampled_budget_check(dev, cache, stream_params)
+
+        # 11 (a). the bitpack decode kernel, and on phase 6's first page
+        bitpack_row = bitpack_kernel_checks(args.seed, dev, cache)
 
     # 7. determinism of the streaming path ------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pages_") as cache:
@@ -499,6 +533,10 @@ def main(argv=None) -> int:
         args.seed, dev, params, elastic_path)
     results.insert(1, window_row)
 
+    # 11 (b). page codecs on the streaming and in-core paths
+    stream_codec_launches = compression_stream_phase(args.seed, dev, params)
+    results.append(bitpack_row)
+
     # launches: the paths' runs (phase 10's lossguide fits among them), each
     # counted from zero (per path above);
     # the chunk-shape row of predict_forest counts its chunked launches alone
@@ -507,7 +545,8 @@ def main(argv=None) -> int:
             path[r["name"]]
             for path in (in_core_launches, stream_launches, sampled_launches, elastic_launches,
                          serving_launches, lg_core_launches, lg_paged_launches,
-                         lg_elastic_launches)
+                         lg_elastic_launches, grad_launches, serve_codec_launches,
+                         stream_codec_launches)
         )
     i = next(i for i, r in enumerate(results) if r["name"] == "predict_forest")
     results.insert(i + 1, chunk_row)
@@ -766,12 +805,13 @@ def threshold_repeatability(dev, n: int, calls: int = 30) -> None:
         raise SystemExit("the MVS threshold or draw differs from call to call")
 
 
-def serving_phase(seed: int, dev, cache: str, booster, X, Xe) -> tuple[dict, dict]:
+def serving_phase(seed: int, dev, cache: str, booster, X, Xe) -> tuple[dict, dict, object]:
     """Phase 9: the serving tier on phase 6's pages (see the module
     docstring). Each mode runs with the launch counts zeroed just before it
     and read just after; the direct predicts it is compared with run
-    outside those counts. Returns the path's launch counts and the
-    chunk-shape row of the kernels line."""
+    outside those counts. Returns the path's launch counts, the
+    chunk-shape row of the kernels line and the served forest (phase 11
+    (d) serves it again)."""
     import dataclasses
 
     import numpy as np
@@ -998,7 +1038,7 @@ def serving_phase(seed: int, dev, cache: str, booster, X, Xe) -> tuple[dict, dic
     row = chunk_kernel_check(seed, dev, page, forest.chunk(0, tpc))
     row["launches"] = chunked["predict_forest"]
     print(f"serving phase: {time.perf_counter() - t_phase:.3f} s in all")
-    return totals, row
+    return totals, row, forest
 
 
 def _plain_margins(forest, bins):
@@ -2436,6 +2476,307 @@ def sampled_budget_check(dev, cache: str, params: dict) -> None:
           f"page {capacity} rows (+{extra} B), budget {budget} B -> decision "
           f"{b.decision_.mode} f={b.decision_.sampling_f}; peak above start {peak} B, "
           f"within the budget: {peak <= budget} (over by {max(0, peak - budget)} B)")
+
+
+# ------------------------------------------------------ phase 11: compression
+CODEC_WIRE_RATIO = 0.76  # bitpack wire / logical bytes at 6-bit symbols (0.75 a page)
+GRAD_AUC_TOLERANCE = 0.02  # the reference's bound for a lossy spill transport
+
+
+def _packed_grid_page(rng, rows: int, cols: int, bits: int, missing: bool):
+    """A uint8 page whose bitpack width is exactly ``bits``, with ~10%
+    missing values and one all-missing row when ``missing``."""
+    import numpy as np
+
+    top = (1 << bits) - 2 if missing else min((1 << bits) - 1, 254)
+    page = rng.integers(0, top + 1, size=(rows, cols)).astype(np.uint8)
+    if missing:
+        page[rng.random(page.shape) < 0.1] = 255
+        page[min(3, rows - 1)] = 255
+    page[0, 0] = top
+    return page
+
+
+def bitpack_kernel_checks(seed: int, dev, cache: str) -> dict:
+    """Phase 11 (a): the bitpack decode kernel against its plain version,
+    bit for bit, on a grid of widths and on phase 6's first page, which it
+    times. Returns the kernels line's row (launches filled in by main);
+    restores the kernel's launch count."""
+    import numpy as np
+    import torch
+
+    from repro_torch.compress import BitpackCodec
+    from repro_torch.data.pages import PageStore
+    from repro_torch.kernels import bitpack as k_bitpack
+    from repro_torch.kernels import ref
+
+    saved = k_bitpack.launches
+    codec = BitpackCodec()
+    rng = np.random.default_rng(seed + 111)
+    n_cases = 0
+    for bits in range(1, 9):
+        for missing in (False, True):
+            for rows, cols in ((4096, 500), (1000, 13), (7, 1), (1, 4099)):
+                page = _packed_grid_page(rng, rows, cols, bits, missing)
+                payload, meta = codec.encode(page)
+                if meta["bits"] != bits:
+                    raise SystemExit(f"grid page packs at {meta['bits']} bits, not {bits}")
+                p = torch.from_numpy(payload).to(dev)
+                got = k_bitpack.bitpack_decode(p, cols, bits, meta["missing"])
+                want = ref.bitpack_decode(p, cols, bits, meta["missing"])
+                if not (torch.equal(got, want) and np.array_equal(got.cpu().numpy(), page)):
+                    raise SystemExit(f"bitpack decode kernel disagrees at bits={bits} "
+                                     f"missing={missing} shape=({rows}, {cols})")
+                n_cases += 1
+    print(f"bitpack (a): decode kernel == plain version == the page (bitwise) in {n_cases} "
+          f"cases: bits 1-8, with and without missing values (an all-missing row), "
+          f"(rows, symbols) in (4096, 500), (1000, 13), (7, 1), (1, 4099)")
+
+    bins = PageStore(cache).read_page(0)["bins"]
+    payload, meta = codec.encode(bins)
+    rows, cols = bins.shape
+    bits, miss = meta["bits"], meta["missing"]
+    p = torch.from_numpy(payload).to(dev)
+    got = k_bitpack.bitpack_decode(p, cols, bits, miss)
+    want = ref.bitpack_decode(p, cols, bits, miss)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and np.array_equal(got.cpu().numpy(), bins)):
+        raise SystemExit("bitpack decode kernel disagrees on phase 6's first page")
+    n_bytes = payload.nbytes + bins.nbytes  # packed read once, uint8 written once
+    bound_ms, bound_by = _bound(n_bytes, 4 * bins.size)  # shift, or, shift, mask a symbol
+    row = dict(
+        name="bitpack_decode", route="cuda", source="src/repro_torch/kernels/csrc/bitpack.cu",
+        replaces="src/repro/compress/codecs.py:148 (BitpackCodec.device_decode, jnp; no "
+                 "Pallas counterpart)",
+        shape=f"{rows} x {cols}, {bits} bits", max_abs_err=0.0,
+        ms=_time_ms(lambda: k_bitpack.bitpack_decode(p, cols, bits, miss), 20),
+        device_ms=_time_ms(lambda: k_bitpack.bitpack_decode(p, cols, bits, miss), 20,
+                           queued=True),
+        plain_ms=_time_ms(lambda: ref.bitpack_decode(p, cols, bits, miss), 3),
+        bound_ms=bound_ms, bound_by=bound_by,
+        # no one PyTorch call unpacks bit fields narrower than a byte
+        library_ms=None,
+    )
+    k_bitpack.launches = saved
+    print(f"kernel bitpack_decode ({rows} x {cols} at {bits} bits, missing symbol {miss}): "
+          f"== plain version == the page (bitwise) True ms={row['ms']:.4f} "
+          f"device_ms={row['device_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+          f"bound_ms={bound_ms:.4f} ({bound_by}: {payload.nbytes} B packed read + "
+          f"{bins.nbytes} B uint8 write = {n_bytes} B at {HBM_BYTES_PER_S / 1e12} TB/s) "
+          f"library_ms=None (no one PyTorch call unpacks sub-byte fields)")
+    return row
+
+
+def compression_grad_phase(dev, dm, Xe, ye, params: dict) -> dict:
+    """Phase 11 (c): phase 10 (c)'s budgeted lossguide fit with each spill
+    transport. Returns the launch counts of its fits."""
+    import torch
+
+    from repro_torch.core.booster import BoosterParams, GradientBooster
+    from repro_torch.core.policy import ExecutionPolicy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    total: dict = {}
+    lg = dict(params, n_estimators=4, grow_policy="lossguide", max_leaves=64, pop_batch=1)
+    node_bytes = ExecutionPolicy().memory_model(dm, BoosterParams(**lg)).hist_node_bytes
+    fits = {}
+    for mode in ("raw", "f16", "bf16", "int8", "int8"):
+        policy = ExecutionPolicy(hist_budget_bytes=16 * node_bytes, grad_transport=mode)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = GradientBooster(device=dev, policy=policy, **lg).fit(dm, eval_set=(Xe, ye))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        _add_counts(total, launch_counts())
+        st = b.stats
+        print(f"grad transport (c) {mode}: fit={secs:.3f} s per_tree="
+              f"{b.eval_history[-1].elapsed_s / len(b.trees):.4f} s hist_spills={st.hist_spills} "
+              f"hist_spill_bytes={st.hist_spill_bytes} hist_fetches={st.hist_fetches} "
+              f"hist_fetch_bytes={st.hist_fetch_bytes} bytes a spill "
+              f"{st.hist_spill_bytes / max(st.hist_spills, 1):.1f} eval_auc="
+              f"{b.eval_history[-1].value:.6f}")
+        if mode in fits:
+            if not _same_trees(b.trees, fits[mode].trees):
+                raise SystemExit(f"two {mode} spill-transport fits grew different trees")
+            print(f"grad transport (c): two {mode} fits grew identical trees (every field)")
+        else:
+            fits[mode] = b
+    raw = fits["raw"]
+    raw_auc = raw.eval_history[-1].value
+    raw_spills = raw.stats.hist_spills
+    if not raw_spills or raw.stats.hist_spill_bytes != raw_spills * node_bytes:
+        raise SystemExit(f"raw spills are not whole f32 node histograms: {raw.stats}")
+    for mode, divisor in (("f16", 2), ("bf16", 2), ("int8", 4)):
+        st = fits[mode].stats
+        auc_gap = fits[mode].eval_history[-1].value - raw_auc
+        per_spill = st.hist_spill_bytes // max(st.hist_spills, 1)
+        print(f"grad transport (c) {mode}: a spill moves {per_spill} B against {node_bytes} B "
+              f"raw (1/{divisor}: "
+              f"{st.hist_spill_bytes * divisor == st.hist_spills * node_bytes}); spill bytes "
+              f"{st.hist_spill_bytes} against {raw.stats.hist_spill_bytes} raw ({st.hist_spills} "
+              f"against {raw.stats.hist_spills} spills); eval AUC - raw {auc_gap:+.6f}")
+        if not st.hist_spills or st.hist_spill_bytes * divisor != st.hist_spills * node_bytes:
+            raise SystemExit(f"{mode} spills are not 1/{divisor} of a raw spill's bytes")
+        if st.hist_fetch_bytes * divisor != st.hist_fetches * node_bytes:
+            raise SystemExit(f"{mode} fetches are not 1/{divisor} of a raw fetch's bytes")
+        if abs(auc_gap) > GRAD_AUC_TOLERANCE:
+            raise SystemExit(f"{mode} spill transport moved eval AUC by {auc_gap}")
+    print(f"grad transport (c): {time.perf_counter() - t_phase:.3f} s in all")
+    return total
+
+
+def compression_serving_phase(dev, forest, Xe) -> dict:
+    """Phase 11 (d): the served 256-tree forest in 32-tree chunks through
+    the forest transport, against the raw server. Returns launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import ForestServer
+
+    tpc, total = 32, {}
+    rows = np.ascontiguousarray(Xe)
+    n_chunks = -(-forest.n_trees // tpc)
+    chunk_nodes = tpc * forest.n_total
+    out = {}
+    for label, kw in (("raw", {}), ("bitpack", dict(page_codec="bitpack"))):
+        server = ForestServer(forest, trees_per_chunk=tpc, **kw)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[label] = server.predict_margin(rows)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        _add_counts(total, launch_counts())
+        st = server.stats
+        print(f"forest transport (d) {label}: {forest.n_trees} trees in {n_chunks} chunks of "
+              f"{tpc} over {len(rows)} rows: {secs:.3f} s, wire {st.wire_bytes} B logical "
+              f"{st.logical_bytes} B ({st.wire_bytes // n_chunks} B a chunk)")
+        want_wire = n_chunks * chunk_nodes * (14 if label == "bitpack" else 24)
+        if st.wire_bytes != want_wire or st.logical_bytes != n_chunks * chunk_nodes * 24:
+            raise SystemExit(f"forest chunks ({label}) moved {st.wire_bytes} B, not {want_wire}")
+    if not np.array_equal(out["bitpack"], out["raw"]):
+        raise SystemExit("the forest transport changed the served margins")
+    pinned = ForestServer(forest, trees_per_chunk=tpc, page_codec="bitpack", pin_chunks=True)
+    h2d = []
+    for _ in range(2):
+        before = pinned.stats.host_to_device_bytes
+        reset_launch_counts()
+        got = pinned.predict_margin(rows)
+        _add_counts(total, launch_counts())
+        h2d.append(pinned.stats.host_to_device_bytes - before)
+        if not np.array_equal(got, out["raw"]):
+            raise SystemExit("the pinned forest-transport server changed the margins")
+    print(f"forest transport (d): bitpack == raw server (bitwise) True; a chunk {chunk_nodes * 14} "
+          f"B on the wire against {chunk_nodes * 24} B; pinned server h2d per request {h2d} B")
+    if h2d != [n_chunks * chunk_nodes * 14, 0]:
+        raise SystemExit(f"the pinned server staged {h2d} B over two requests")
+    return total
+
+
+def compression_stream_phase(seed: int, dev, params: dict, n_rows: int = 200_000) -> dict:
+    """Phase 11 (b): page codecs on the streaming and in-core paths (see the
+    module docstring), on ``n_rows`` fresh rows. Returns the launch counts
+    of its fits."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.booster import BoosterParams, GradientBooster
+    from repro_torch.core.policy import ExecutionPolicy
+    from repro_torch.data.dmatrix import IterDMatrix, PagedDMatrix
+    from repro_torch.data.pages import _zstd
+    from repro_torch.data.synthetic import make_classification
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    total: dict = {}
+    m = 500
+    X, y = make_classification(n_rows, m, missing_rate=0.05, seed=seed + 11)
+    Xe, ye = make_classification(20_000, m, missing_rate=0.05, seed=seed + 11, batch=1)
+    step = max(1, n_rows // 4)
+    batches = [(X[i : i + step], y[i : i + step]) for i in range(0, n_rows, step)]
+    p = dict(params, n_estimators=2, max_bin=32)
+    print(f"codecs (b): zstandard {'installed' if _zstd is not None else 'not installed'} "
+          f"on this machine; {n_rows} x {m} rows, 5% missing, max_bin=32")
+    fits = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_codecs_") as root:
+        cuts = None
+        for codec in ("raw", "bitpack", "delta-rle"):
+            t0 = time.perf_counter()
+            dm = IterDMatrix(batches, max_bin=32, cuts=cuts, cache_dir=f"{root}/{codec}",
+                             page_bytes=PAGE_BYTES, page_codec=codec, device=dev)
+            cuts = dm.cuts
+            print(f"codecs (b) {codec} store: {dm.n_pages} pages, "
+                  f"{dm.stats.disk_write_bytes} B on disk, written in "
+                  f"{time.perf_counter() - t0:.3f} s")
+        for codec in ("raw", "bitpack", "delta-rle"):
+            pdm = PagedDMatrix(f"{root}/{codec}")
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b = GradientBooster(device=dev, policy=ExecutionPolicy(mode="out_of_core",
+                                page_codec=codec), **p).fit(pdm, eval_set=(Xe, ye))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = launch_counts()
+            _add_counts(total, counts)
+            st = b.stats
+            passes = st.logical_bytes // (n_rows * m)
+            print(f"codecs (b) streaming {codec}: decision={b.decision_.mode} fit={secs:.3f} s "
+                  f"per_tree={b.eval_history[-1].elapsed_s / len(b.trees):.4f} s "
+                  f"h2d={st.host_to_device_bytes} B wire/logical={st.wire_ratio:.6f} "
+                  f"({passes} passes of {pdm.n_pages} pages) disk_read={st.disk_read_bytes} B "
+                  f"fetch_s={st.stream_fetch_seconds:.3f} bitpack_decode launches="
+                  f"{counts['bitpack_decode']} eval_auc={b.eval_history[-1].value:.6f}")
+            if b.decision_.mode != "out_of_core":
+                raise SystemExit(f"the {codec} streaming fit decided {b.decision_.mode!r}")
+            want_decodes = passes * pdm.n_pages if codec == "bitpack" else 0
+            if counts["bitpack_decode"] != want_decodes:
+                raise SystemExit(f"{codec}: {counts['bitpack_decode']} decode launches, not "
+                                 f"one a staged page ({want_decodes})")
+            fits[codec] = b
+        raw = fits["raw"]
+        for codec in ("bitpack", "delta-rle"):
+            b = fits[codec]
+            if not (_same_trees(b.trees, raw.trees) and torch.equal(b.margins_, raw.margins_)):
+                raise SystemExit(f"the {codec} streaming fit differs from the raw one")
+        bp = fits["bitpack"].stats
+        if not bp.wire_ratio <= CODEC_WIRE_RATIO:
+            raise SystemExit(f"bitpack wire/logical {bp.wire_ratio} > {CODEC_WIRE_RATIO}")
+        if fits["delta-rle"].stats.wire_bytes != fits["delta-rle"].stats.logical_bytes:
+            raise SystemExit("delta-rle changed the staged bytes")
+        print("codecs (b): bitpack and delta-rle streaming trees and margins == raw (bitwise)")
+
+        # in core on the same rows: the matrix staged raw and packed
+        pdm = PagedDMatrix(f"{root}/raw")
+        core = {}
+        for codec in ("raw", "bitpack"):
+            policy = ExecutionPolicy(mode="in_core", page_codec=codec)
+            model = policy.memory_model(pdm, BoosterParams(**p))
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            b = GradientBooster(device=dev, policy=policy, **p).fit(pdm)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            counts = launch_counts()
+            _add_counts(total, counts)
+            need = model.in_core_bytes(pdm.n_rows)
+            print(f"codecs (b) in core {codec}: peak above start {peak} B against the byte "
+                  f"model's in_core_bytes {need} B ({peak - need:+d} B; page_codec_bits "
+                  f"{model.page_codec_bits}) h2d={b.stats.host_to_device_bytes} B "
+                  f"bitpack_decode launches={counts['bitpack_decode']}")
+            if counts["bitpack_decode"] != (1 if codec == "bitpack" else 0):
+                raise SystemExit(f"in core {codec}: {counts['bitpack_decode']} decode launches")
+            core[codec] = b
+        if not _same_trees(core["bitpack"].trees, core["raw"].trees):
+            raise SystemExit("the bitpack in-core fit differs from the raw one")
+        print("codecs (b): bitpack in-core trees == raw (bitwise)")
+    print(f"codecs (b): {time.perf_counter() - t_phase:.3f} s in all")
+    return total
 
 
 if __name__ == "__main__":

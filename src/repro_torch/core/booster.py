@@ -38,7 +38,12 @@ Everything runs on the CUDA device unless the caller passes
 host; asking for CUDA where there is none raises. Every engine grows
 depthwise or best-first (``grow_policy="lossguide"``, `core.tree`), and the
 policy's ``hist_budget_bytes`` bounds the device tier of the histogram store
-(`core.histcache`), whose spills and fetches land in ``stats``.
+(`core.histcache`), whose spills and fetches land in ``stats``; the
+policy's ``grad_transport`` narrows them, and its ``page_codec``
+(`repro_torch.compress`) is threaded through every staging path: a
+device-decodable codec
+(``"bitpack"``) copies packed pages and decodes them on the device, with
+the same bins and so the same trees.
 
 Checkpoints use the reference's format (``model.npz``, ``booster.json``,
 ``manifest.json`` with CRC32), so a forest saved by `repro` loads here and
@@ -231,6 +236,7 @@ class GradientBooster:
             retained_levels=self.policy.hist_retained_levels,
             transfer_stats=transfer_stats,
             retry=self.policy.retry,
+            grad_transport=self.policy.grad_transport,
         )
 
     # ------------------------------------------------------------------ fit
@@ -345,12 +351,7 @@ class GradientBooster:
         labels = dm.require_labels()
         n_bins = dm.n_bins
         bin_valid = bin_valid_from_cuts(dm.cuts, n_bins, dev)
-        host_bins = np.ascontiguousarray(dm.single_page_bins())
-        # the uint8 ELLPACK matrix is staged as is: the kernels read uint8
-        bins = torch.from_numpy(host_bins).to(dev)
-        self.stats.logical_bytes += host_bins.nbytes
-        self.stats.wire_bytes += host_bins.nbytes
-        self.stats.host_to_device_bytes += host_bins.nbytes
+        bins = self._stage_in_core(np.ascontiguousarray(dm.single_page_bins()))
         labels_t = torch.from_numpy(labels).to(dev)
 
         if start_iteration == 0:
@@ -379,6 +380,26 @@ class GradientBooster:
         self._boost(boost_round, eval_set, dm.cuts, eval_metric, verbose, start_iteration)
         return self
 
+    def _stage_in_core(self, host_bins: np.ndarray) -> Tensor:
+        """Stage the whole uint8 matrix (the kernels read uint8), through the
+        policy's page codec when it is device-decodable: only the packed
+        payload is copied, and the bitpack decode kernel expands it to the
+        same bins on the device."""
+        from repro_torch.compress import make_transport
+
+        transport = make_transport(self.policy.page_codec)
+        if transport is None:
+            bins = torch.from_numpy(host_bins).to(self.device)
+            wire_nbytes = host_bins.nbytes
+        else:
+            wire, wire_meta = transport.encode(host_bins)
+            bins = transport.decode(torch.from_numpy(wire).to(self.device), wire_meta)
+            wire_nbytes = wire.nbytes
+        self.stats.logical_bytes += host_bins.nbytes
+        self.stats.wire_bytes += wire_nbytes
+        self.stats.host_to_device_bytes += wire_nbytes
+        return bins
+
     # ----------------------------------------------- Alg. 6 (streaming path)
     def _stream(self, indices=None):
         """One `PageStream` pass over the last external fit's page set, or
@@ -390,6 +411,7 @@ class GradientBooster:
             staging_depth=self.policy.staging_depth,
             cache=self._device_cache,
             retry=self.policy.retry,
+            codec=self.policy.page_codec,
         )
 
     def _fit_external(
@@ -487,7 +509,8 @@ class GradientBooster:
             hi = np.searchsorted(sel_np, page.row_offset + page.n_rows, side="left")
             if hi > lo:
                 bins_np[lo:hi] = page.bins[sel_np[lo:hi] - page.row_offset]
-        bins_c = self.pages.stage(EllpackPage(bins_np, 0), self.device)
+        bins_c = self.pages.stage(EllpackPage(bins_np, 0), self.device,
+                                  codec=self.policy.page_codec)
         res = grow_tree(
             bins_c, g_c, h_c, n_bins, bin_valid, tp,
             cut_values=cuts.values, cut_ptrs=cuts.ptrs, hist_cache=self.hist_cache,
@@ -556,7 +579,7 @@ class GradientBooster:
         if hasattr(X, "page_set"):  # DMatrix: the streaming serving path
             from repro_torch.serve.engine import predict_margin_dmatrix
 
-            return predict_margin_dmatrix(forest, X)
+            return predict_margin_dmatrix(forest, X, page_codec=self.policy.page_codec)
         return forest.predict_margin_bins(forest.quantize(X)).cpu().numpy()
 
     def predict(self, X, output_margin: bool = False) -> np.ndarray:

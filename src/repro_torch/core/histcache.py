@@ -47,8 +47,12 @@ ancestors only after every spillable entry has left the device.
                              rows per node of a window or of a node list,
                              the counts the plans take
 
-Only the raw f32 spill transport is ported; quantized transports come with
-compression (ROADMAP queue 1 item 8).
+A ``grad_transport`` (`repro_torch.compress.GradQuantizer`) narrows what a
+spill moves: the histogram is quantized on the device before the copy
+(f16/bf16 casts; int8 with a per-array absmax scale that stays on the
+device), the pinned host buffer holds the wire dtype, and a fetch
+dequantizes to f32 before anything reads the histogram. The ledger books
+the wire bytes for spills and fetches and the f32 size as logical bytes.
 """
 from __future__ import annotations
 
@@ -57,6 +61,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.compress import GradQuantizer
 from repro_torch.data.pages import TransferStats
 from repro_torch.fault import inject as fault_inject
 from repro_torch.fault.retry import RetryPolicy
@@ -217,7 +222,11 @@ class HistogramStore:
     transfer_stats : `TransferStats` sink of the spill and fetch bytes (the
         page set's, when the caller shares the ledger).
     retry : `RetryPolicy` of the fetch's staging (None = its defaults).
-    grad_transport : wire transport of the spill; only "raw" is ported.
+    grad_transport : wire transport of the spill/fetch round trip
+        (`GradQuantizer`): "raw" keeps the f32 path bit for bit; "f16" and
+        "bf16" halve and "int8" quarters the bytes a spilled histogram
+        moves. Payloads are dequantized to f32 at fetch, before any
+        accumulation, so only the stored values narrow, never the order.
     """
 
     def __init__(
@@ -233,16 +242,12 @@ class HistogramStore:
             raise ValueError(f"budget_bytes must be >= 0 or None, got {budget_bytes}")
         if retained_levels < 1:
             raise ValueError(f"retained_levels must be >= 1, got {retained_levels}")
-        if grad_transport != "raw":
-            raise NotImplementedError(
-                f"grad_transport={grad_transport!r} is not ported: only the raw f32 spill "
-                "is; quantized transports come with ROADMAP queue 1 item 8"
-            )
         self.enabled = enabled
         self.budget_bytes = budget_bytes
         self.retained_levels = retained_levels
         self.transfer_stats = transfer_stats if transfer_stats is not None else TransferStats()
         self.retry = retry if retry is not None else RetryPolicy()
+        self.quantizer = GradQuantizer.resolve(grad_transport)
         self.stats = HistCacheStats()
         self._device: dict[tuple, Tensor] = {}
         # host tier; a key whose copy is still in flight maps to None here
@@ -252,6 +257,8 @@ class HistogramStore:
         self.max_inflight_spills = 2  # the depth PageStream stages with
         self._copy_streams: dict = {}
         self._nbytes: dict[tuple, int] = {}
+        # int8 transport: per-key dequantization scale (a 0-d device f32)
+        self._qscale: dict[tuple, Tensor | None] = {}
         self._kind: dict[tuple, str] = {}  # "level" | "node" | "ancestor"
         self._priority: dict[tuple, float] = {}  # lower = colder = spills first
         self._stamp: dict[tuple, int] = {}  # insertion order breaks ties
@@ -267,6 +274,7 @@ class HistogramStore:
         self._host.clear()
         self._inflight.clear()  # abandoned copies stay safe, as in `_drop`
         self._nbytes.clear()
+        self._qscale.clear()
         self._kind.clear()
         self._priority.clear()
         self._stamp.clear()
@@ -308,6 +316,7 @@ class HistogramStore:
         self._inflight.pop(key, None)
         self._host.pop(key, None)
         self._nbytes.pop(key, None)
+        self._qscale.pop(key, None)
         self._kind.pop(key, None)
         self._priority.pop(key, None)
         self._stamp.pop(key, None)
@@ -321,8 +330,13 @@ class HistogramStore:
         """Device -> host, asynchronously. The tier change is booked at once
         (``tier_of`` says "host", the ledger counts the spill, the budget is
         credited); the host buffer is complete only at `_host_buffer`.
-        Spill seconds are booked nowhere: the copy runs behind compute."""
+        Spill seconds are booked nowhere: the copy runs behind compute. A
+        quantizing transport narrows the histogram on the device first, on
+        the current stream, so the side stream copies the new wire tensor.
+        """
         arr = self._device.pop(key)
+        if not self.quantizer.is_raw:
+            arr, self._qscale[key] = self.quantizer.quantize(arr)
         if arr.is_cuda:
             side = self._copy_stream(arr.device)
             side.wait_stream(torch.cuda.current_stream(arr.device))
@@ -338,7 +352,7 @@ class HistogramStore:
         self._inflight[key] = spill
         self._host[key] = None  # logically in the host tier from now on
         self._dev_bytes -= self._nbytes[key]
-        nbytes = self._nbytes[key]
+        nbytes = arr.numel() * arr.element_size()  # wire bytes: the f32 size when raw
         ts = self.transfer_stats
         ts.hist_spills += 1
         ts.hist_spill_bytes += nbytes
@@ -367,7 +381,9 @@ class HistogramStore:
         """Host -> device: stage a spilled histogram back through `PageStream`
         (its seconds in a private ledger, which a lone synchronous put would
         only dilute; its bytes in the shared `TransferStats`), retried under
-        ``self.retry``; the fault site "hist_store.fetch" fires once a try."""
+        ``self.retry``; the fault site "hist_store.fetch" fires once a try.
+        A quantized payload (staged as its bytes: numpy has no bf16) is
+        widened back to f32 before anything reads it."""
         from repro_torch.pipeline.stream import PageStream
 
         host = self._host_buffer(key)  # popped only after a successful stage
@@ -375,13 +391,15 @@ class HistogramStore:
         def _stage() -> Tensor:
             fault_inject.fire("hist_store.fetch")
             stream = PageStream.from_host_pages(
-                [host], to_array=lambda t: t.numpy(), device=device,
-                cache_tag="hist", stats=TransferStats(),
+                [host], to_array=lambda t: t.contiguous().view(torch.uint8).numpy(),
+                device=device, cache_tag="hist", stats=TransferStats(),
             )
             (page,) = list(stream)
-            return page.device
+            return page.device.view(host.dtype)
 
         hist = self.retry.call(_stage, stats=self.transfer_stats, describe="histogram fetch")
+        if not self.quantizer.is_raw:
+            hist = self.quantizer.dequantize(hist, self._qscale.pop(key, None))
         del self._host[key]
         self._device[key] = hist
         self._dev_bytes += self._nbytes[key]
@@ -390,7 +408,7 @@ class HistogramStore:
         ts.hist_fetches += 1
         ts.hist_fetch_bytes += nbytes
         ts.host_to_device_bytes += nbytes
-        ts.logical_bytes += nbytes
+        ts.logical_bytes += self._nbytes[key]
         ts.wire_bytes += nbytes
         return hist
 

@@ -47,8 +47,11 @@ class DeviceMemoryModel:
     hist_budget_bytes: int | None = None
     # lossguide leaf budget; 0 = depthwise (whole-level histograms)
     max_leaves: int = 0
-    # bits per ELLPACK bin symbol on the wire / resident: 8 = raw uint8
-    # pages (the only page codec of this slice; packed codecs are queued)
+    # bits per ELLPACK bin symbol on the wire / resident (repro_torch.compress):
+    # 8 = raw uint8 pages, ceil(log2(n_bins+1)) when a device-decodable
+    # page codec ("bitpack") packs them (`compress.model_bits`). The model is
+    # the reference's: it counts the matrix packed on the device, though both
+    # packages hold decoded symbols after the decode (ROADMAP queue 3)
     page_codec_bits: int = 8
 
     @property

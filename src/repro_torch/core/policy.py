@@ -3,7 +3,8 @@
 Counterpart of `repro.core.policy`. The decision procedure is the
 reference's, unchanged, and `GradientBooster.fit` trains each of its three
 decisions. The policy also carries the streaming knobs (prefetch and staging depths,
-per-node page skipping, device page cache, checkpoint cadence) and the I/O
+per-node page skipping, device page cache, checkpoint cadence), the page
+codec and histogram spill transport (`repro_torch.compress`), and the I/O
 retry policy, which the histogram store's fetch shares.
 
 The paper's decision procedure, as a config object: given a `DMatrix` and the
@@ -35,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.compress import GradQuantizer, get_codec, model_bits
 from repro_torch.core.memory import DeviceMemoryModel
 from repro_torch.fault.retry import RetryPolicy
 
@@ -101,6 +103,17 @@ class ExecutionPolicy:
     # checkpoint cadence for external-mode training (None = no checkpoints)
     checkpoint_every: int | None = None
     checkpoint_dir: str | None = None
+    # lossless page codec of every host->device staging path
+    # (repro_torch.compress): "raw" = uint8 pages bit for bit; "bitpack"
+    # stages ceil(log2(n_symbols))-bit packed payloads, expanded on the
+    # device by the bitpack decode kernel, and shrinks the byte model's
+    # matrix/page terms. The trained forest is identical either way.
+    page_codec: str = "raw"
+    # wire transport of the HistogramStore's spill/fetch (GradQuantizer):
+    # "raw" (f32, bit for bit), "f16"/"bf16" (half the spill bytes) or
+    # "int8" (per-array absmax scale, a quarter). Payloads are dequantized
+    # to f32 before any accumulation.
+    grad_transport: str = "raw"
     # transient-I/O retry/backoff of the page prefetcher; attempts/aborts
     # are accounted in TransferStats.io_retries / io_giveups
     retry: RetryPolicy = RetryPolicy()
@@ -118,6 +131,9 @@ class ExecutionPolicy:
             raise ValueError("hist_budget_bytes must be >= 0 or None")
         if self.hist_retained_levels < 1:
             raise ValueError("hist_retained_levels must be >= 1")
+        # an unknown codec or transport fails at construction, not mid-fit
+        get_codec(self.page_codec)
+        GradQuantizer.resolve(self.grad_transport)
 
     # ------------------------------------------------------------- byte model
     def memory_model(self, dm, params) -> DeviceMemoryModel:
@@ -138,6 +154,7 @@ class ExecutionPolicy:
             hist_retained_levels=self.hist_retained_levels,
             hist_budget_bytes=self.hist_budget_bytes,
             max_leaves=max_leaves,
+            page_codec_bits=model_bits(self.page_codec, max(dm.n_bins, 1)),
             **kw,
         )
 

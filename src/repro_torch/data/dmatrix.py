@@ -40,7 +40,8 @@ from repro_torch.core.ellpack import (
     rows_per_page,
 )
 from repro_torch.core.quantile import HistogramCuts, QuantileSketch
-from repro_torch.data.pages import NOT_PORTED_CODEC, PageStore, TransferStats
+from repro_torch.compress import EncodedPage, make_transport
+from repro_torch.data.pages import PageStore, TransferStats
 from repro_torch.pipeline import DevicePageCache, PageStream
 
 _META_FILE = "dmatrix.npz"
@@ -52,7 +53,12 @@ def _resolve(device) -> torch.device:
     return resolve_device(device)
 
 
-def _bins_to_host_array(page: EllpackPage) -> np.ndarray:
+def _bins_to_host_array(page: EllpackPage) -> np.ndarray | EncodedPage:
+    """The host array a page stages: its uint8 bins, or the payload as its
+    codec stored it (an `EncodedPage`, which the stream's transport of the
+    same codec stages without a host decode)."""
+    if isinstance(page.bins, EncodedPage):
+        return page.bins
     return np.ascontiguousarray(page.bins)
 
 
@@ -95,16 +101,17 @@ class PageSet:
         lossguide builds).
 
         ``retry`` is the prefetcher's `RetryPolicy` (None = its defaults).
-        ``codec`` names a page codec; only raw pages are ported, so anything
-        but None or ``"raw"`` raises. ``cache_tag`` namespaces this matrix's
+        ``codec`` names a `repro_torch.compress` page codec: a device-
+        decodable one (``"bitpack"``) stages the packed wire payload and the
+        bitpack decode kernel expands it on the device (pages the store
+        wrote with that codec stage as stored, with no host decode);
+        anything else stages uncompressed. ``cache_tag`` namespaces this matrix's
         pages inside a shared ``cache``, which one serving cache that
         outlives a matrix needs (colliding keys would return another
         matrix's rows). ``stats`` redirects the pass's ledger entries
         (default: the page set's own `TransferStats`), so that the serving
         engine books row pages and forest chunks in one ledger.
         """
-        if codec not in (None, "raw"):
-            raise NotImplementedError(NOT_PORTED_CODEC.format(codec))
         common = dict(
             to_array=_bins_to_host_array,
             device=device,
@@ -114,6 +121,7 @@ class PageSet:
             cache=cache,
             cache_tag=cache_tag,
             retry=retry,
+            transport=make_transport(codec),
         )
         if self.host_pages is not None:
             return PageStream.from_host_pages(self.host_pages, indices=indices, **common)
@@ -127,17 +135,29 @@ class PageSet:
         """Host-side pass (no device staging); disk pages go through the prefetcher."""
         yield from self.stream(device="cpu", prefetch_depth=prefetch_depth).iter_host()
 
-    def stage(self, page: EllpackPage, device: str | torch.device = "cuda") -> torch.Tensor:
-        """Host -> device copy of one page ("CopyToGPU"), booked in the
-        page set's `TransferStats`. Pages are staged raw (the page codecs
-        are not ported)."""
+    def stage(
+        self,
+        page: EllpackPage,
+        device: str | torch.device = "cuda",
+        codec: str | None = None,
+    ) -> torch.Tensor:
+        """Host -> device copy of one page ("CopyToGPU"), booked in the page
+        set's `TransferStats`; a device-decodable ``codec`` sends the packed
+        payload and decodes it on ``device``."""
+        transport = make_transport(codec)
         arr = _bins_to_host_array(page)
         t0 = time.perf_counter()
-        out = torch.from_numpy(arr).to(device)
+        if transport is not None:
+            wire, wire_meta = transport.encode(arr)
+            out = transport.decode(torch.from_numpy(wire).to(device), wire_meta)
+            wire_nbytes = wire.nbytes
+        else:
+            out = torch.from_numpy(arr).to(device)
+            wire_nbytes = arr.nbytes
         dt = time.perf_counter() - t0
-        self.stats.host_to_device_bytes += arr.nbytes
+        self.stats.host_to_device_bytes += wire_nbytes
         self.stats.logical_bytes += arr.nbytes
-        self.stats.wire_bytes += arr.nbytes
+        self.stats.wire_bytes += wire_nbytes
         # a lone synchronous copy overlaps nothing: book equal stage and wall
         # time so it cannot inflate overlap_ratio
         self.stats.stream_stage_seconds += dt
@@ -277,7 +297,10 @@ class IterDMatrix(DMatrix):
     ~``page_bytes`` uint8 ELLPACK pages (Alg. 5), copied back and written
     through a `PageStore` when ``cache_dir`` is given (disk spill, reopenable
     later via either package's `PagedDMatrix`) or kept as host-RAM pages.
-    Pages are written raw (the page codecs are not ported).
+    ``page_codec`` names a lossless `repro_torch.compress` codec applied to
+    each page blob on disk (recorded per page in the manifest, so the cache
+    reopens with either package's reader); ``compress`` zstd-frames the
+    blobs when `zstandard` is installed.
     """
 
     def __init__(
@@ -288,6 +311,8 @@ class IterDMatrix(DMatrix):
         cuts: HistogramCuts | None = None,
         cache_dir: str | None = None,
         page_bytes: int = DEFAULT_PAGE_BYTES,
+        compress: bool = False,
+        page_codec: str = "raw",
         stats: TransferStats | None = None,
         device: str | torch.device = "cuda",
     ):
@@ -297,7 +322,9 @@ class IterDMatrix(DMatrix):
         self.page_bytes = page_bytes
         self.cache_dir = cache_dir
         self.stats = stats if stats is not None else TransferStats()
-        store = PageStore(cache_dir, stats=self.stats) if cache_dir is not None else None
+        store = None
+        if cache_dir is not None:
+            store = PageStore(cache_dir, compress=compress, stats=self.stats, codec=page_codec)
 
         # pass 1 (Alg. 3): incremental sketch + labels, raw data never
         # resident; explicit cuts pin the quantisation and skip the sketch,

@@ -3,14 +3,23 @@
 Counterpart of `repro.data.pages` (paper §2.3 / §3.2 substrate).
 `PageStore` persists ELLPACK pages (and their metadata) to disk in the
 reference's format, so a page cache written by either package opens in the
-other: each blob is ``RAW0`` plus an ``np.savez`` archive, written to a tmp
-file, fsynced and renamed into place, and ``manifest.json`` (replaced the
-same way, after the blob) records each page's size and CRC32. A crash
-mid-write leaves the torn page out of the manifest; `read_page` checks the
-CRC and raises `PageCorruptError` naming the page instead of decoding
-garbage. Only the raw page codec is ported: reading a page whose manifest entry
-names another codec (a cache the reference wrote compressed) or a zstd blob
-raises `NotImplementedError` (ROADMAP queue 1 item 8).
+other: each blob is ``RAW0`` plus an ``np.savez`` archive (``ZST0`` plus a
+zstd frame of it with ``compress=True`` when the `zstandard` module is
+installed), written to a tmp file, fsynced and renamed into place, and
+``manifest.json`` (replaced the same way, after the blob) records each
+page's size and CRC32. A crash mid-write leaves the torn page out of the
+manifest; `read_page` checks the CRC and raises `PageCorruptError` naming
+the page instead of decoding garbage.
+
+Pages optionally pass through a lossless `repro_torch.compress` codec
+(``codec="bitpack"``/``"delta-rle"``/chains): only uint8 members are coded,
+and the codec name and meta are recorded per page in the manifest, so mixed
+and legacy (pre-codec) caches decode correctly. A garbled payload or stale
+meta surfaces as `PageDecodeError` (a `PageCorruptError`, never retried)
+naming the codec and page, through the ``page_store.decode`` fault site.
+``read_page(idx, keep=name)`` leaves the members a ``name`` codec wrote
+undecoded (`repro_torch.compress.EncodedPage`): a stream whose transport
+uses that codec stages them as stored.
 
 `Prefetcher` is the §2.3 multi-threaded pre-fetcher: it loads pages k+1 ..
 k+depth in a background thread while page k is consumed, retrying transient
@@ -33,13 +42,14 @@ from typing import Callable, Iterable, Iterator
 
 import numpy as np
 
+from repro_torch.compress import EncodedPage, get_codec
 from repro_torch.fault import inject as fault_inject
 from repro_torch.fault.retry import RetryPolicy
 
-NOT_PORTED_CODEC = (
-    "page codec {!r} is not ported: only raw pages are; compressed pages come "
-    "with ROADMAP queue 1 item 8"
-)
+try:
+    import zstandard as _zstd
+except ImportError:  # optional, as in the reference: blobs are then RAW0
+    _zstd = None
 
 
 @dataclasses.dataclass
@@ -82,9 +92,9 @@ class TransferStats:
     hist_fetches: int = 0
     # --- compression ledger (filled everywhere pages/histograms stage) ---
     # logical_bytes is what the device consumes after decode; wire_bytes is
-    # what actually crossed host->device. Raw pages (the only kind the port
-    # stages yet) make them equal; a codec's win is exactly logical_bytes -
-    # wire_bytes. Disk-side savings show up in disk_read/write_bytes instead.
+    # what actually crossed host->device. With page_codec="raw" they are
+    # equal; a codec's win is exactly logical_bytes - wire_bytes. Disk-side
+    # savings show up in disk_read/write_bytes instead (the blob shrinks).
     logical_bytes: int = 0
     wire_bytes: int = 0
     # --- retry ledger (filled by repro_torch.fault.RetryPolicy.call) ---
@@ -130,16 +140,21 @@ class TransferStats:
 GLOBAL_STATS = TransferStats()
 
 
-def _encode(arrays: dict[str, np.ndarray]) -> bytes:
+def _encode(arrays: dict[str, np.ndarray], compress: bool = False) -> bytes:
     buf = io.BytesIO()
     np.savez(buf, **arrays)
-    return b"RAW0" + buf.getvalue()
+    raw = buf.getvalue()
+    if compress and _zstd is not None:
+        return b"ZST0" + _zstd.ZstdCompressor(level=1).compress(raw)
+    return b"RAW0" + raw
 
 
 def _decode(blob: bytes) -> dict[str, np.ndarray]:
     tag, body = blob[:4], blob[4:]
-    if tag != b"RAW0":
-        raise NotImplementedError(NOT_PORTED_CODEC.format(tag.decode(errors="replace")))
+    if tag == b"ZST0":
+        if _zstd is None:
+            raise RuntimeError("zstd page but zstandard not installed")
+        body = _zstd.ZstdDecompressor().decompress(body)
     data = np.load(io.BytesIO(body))
     return {k: data[k] for k in data.files}
 
@@ -162,9 +177,9 @@ class PageCorruptError(OSError):
 
 
 class PageDecodeError(PageCorruptError):
-    """A page blob passed CRC but failed to decode (truncated or garbled
-    payload). Deterministic damage like a CRC mismatch — never retried —
-    naming the codec and page index."""
+    """A page blob passed CRC but failed codec decode (truncated/garbled
+    payload, stale codec meta). Deterministic damage like a CRC mismatch —
+    never retried — naming the codec and page index."""
 
     def __init__(self, idx: int, path: str, codec: str, cause: Exception):
         self.idx = idx
@@ -173,8 +188,8 @@ class PageDecodeError(PageCorruptError):
         OSError.__init__(
             self,
             f"page {idx} failed {codec!r} decode on {path}: {cause!r}. The "
-            f"payload is damaged — rebuild the page cache from the raw source "
-            f"(IterDMatrix).",
+            f"compressed payload is damaged — rebuild the page cache from "
+            f"the raw source (IterDMatrix).",
         )
 
 
@@ -212,12 +227,22 @@ class PageStore:
     Every blob and the manifest land via `_atomic_write`; each manifest entry
     records the blob's CRC32, verified on `read_page`. A crash between blob
     and manifest writes leaves the new page invisible (the manifest still
-    describes a fully consistent store).
+    describes a fully consistent store). ``codec`` codes the uint8 members
+    of the pages this store writes; ``compress`` zstd-frames each blob when
+    `zstandard` is installed. Reads decode with each entry's own codec.
     """
 
-    def __init__(self, root: str, stats: TransferStats | None = None):
+    def __init__(
+        self,
+        root: str,
+        compress: bool = False,
+        stats: TransferStats | None = None,
+        codec: str = "raw",
+    ):
         self.root = root
+        self.compress = compress
         self.stats = stats or GLOBAL_STATS
+        self.codec = get_codec(codec)
         os.makedirs(root, exist_ok=True)
         self._meta: dict = {"pages": []}
         self._meta_path = os.path.join(root, "manifest.json")
@@ -235,10 +260,25 @@ class PageStore:
     def write_page(self, arrays: dict[str, np.ndarray], meta: dict | None = None) -> int:
         idx = self.n_pages
         fault_inject.fire("page_store.write_page", index=idx)
-        blob = _encode(arrays)
+        codec_meta: dict = {}
+        if self.codec.name != "raw":
+            # only uint8 payloads (ELLPACK bin pages) go through the codec;
+            # labels and float sidecars pass through verbatim
+            coded = {}
+            for key, arr in arrays.items():
+                if isinstance(arr, np.ndarray) and arr.dtype == np.uint8:
+                    coded[key], codec_meta[key] = self.codec.encode(arr)
+                else:
+                    coded[key] = arr
+            arrays = coded
+        blob = _encode(arrays, self.compress)
         _atomic_write(self._path(idx), blob)
         self.stats.disk_write_bytes += len(blob)
-        entry = {"idx": idx, "bytes": len(blob), "crc32": zlib.crc32(blob), "codec": "raw"}
+        entry = {
+            "idx": idx, "bytes": len(blob), "crc32": zlib.crc32(blob), "codec": self.codec.name
+        }
+        if codec_meta:
+            entry["codec_meta"] = codec_meta
         entry.update(meta or {})
         self._meta["pages"].append(entry)
         # manifest last: a crash before this point leaves the fresh blob
@@ -247,7 +287,11 @@ class PageStore:
         fsync_dir(self.root)
         return idx
 
-    def read_page(self, idx: int) -> dict[str, np.ndarray]:
+    def read_page(self, idx: int, keep: str | None = None) -> dict[str, np.ndarray]:
+        """The page's arrays, each coded member decoded with the codec its
+        manifest entry names; with ``keep``, the members that codec wrote are
+        returned undecoded as `EncodedPage`s, after a check of their
+        geometry against their meta."""
         fault_inject.fire("page_store.read_page", index=idx)
         t0 = time.perf_counter()
         with open(self._path(idx), "rb") as fh:
@@ -258,14 +302,22 @@ class PageStore:
             got = zlib.crc32(blob)
             if got != want:
                 raise PageCorruptError(idx, self._path(idx), want, got)
-        # legacy (pre-codec) manifests have no "codec" field and decode as raw
+        # decode with the codec the *entry* was written with: legacy
+        # (pre-codec) manifests have no "codec" field and decode as raw
         codec_name = entry.get("codec", "raw")
-        if codec_name != "raw" or entry.get("codec_meta"):
-            raise NotImplementedError(NOT_PORTED_CODEC.format(codec_name))
         try:
             fault_inject.fire("page_store.decode", index=idx, codec=codec_name)
             out = _decode(blob)
-        except NotImplementedError:
+            codec_meta = entry.get("codec_meta") or {}
+            if codec_meta:
+                codec = get_codec(codec_name)
+                for key, cmeta in codec_meta.items():
+                    if keep is not None and codec.name == keep:
+                        codec.validate(out[key], cmeta)
+                        out[key] = EncodedPage(out[key], cmeta, codec)
+                    else:
+                        out[key] = codec.decode(out[key], cmeta)
+        except PageCorruptError:
             raise
         except Exception as err:
             raise PageDecodeError(idx, self._path(idx), codec_name, err) from err
@@ -311,7 +363,7 @@ class Prefetcher:
                 page = self._retry.call(
                     lambda idx=idx: self._load(idx),
                     retryable=(Exception,),
-                    nonretryable=(PageCorruptError, NotImplementedError),
+                    nonretryable=(PageCorruptError,),
                     stats=self._stats,
                     describe=f"page {idx} load",
                 )
@@ -326,7 +378,7 @@ class Prefetcher:
             idx, item = self._queue.get()
             if idx == -1:
                 return
-            if isinstance(item, (PageCorruptError, NotImplementedError)):
+            if isinstance(item, PageCorruptError):
                 raise item  # already the actionable error; don't bury it
             if isinstance(item, Exception):
                 raise RuntimeError(f"page {idx} failed to load after retries") from item

@@ -2,7 +2,7 @@
 
 `kernels.ops` dispatches on the device of the tensors it is given: a CUDA
 tensor launches the kernel (`histogram`, `partition`, `forest`,
-`ellpack_bin`), a CPU tensor runs the plain version in `kernels.ref`.
+`ellpack_bin`, `bitpack`), a CPU tensor runs the plain version in `kernels.ref`.
 Nothing here builds or imports a compiler at import time; `kernels._build`
 compiles the sources in ``kernels/csrc`` on first use.
 
@@ -18,6 +18,7 @@ _COUNTERS = {
     "partition_rows": ("partition", "launches"),
     "predict_forest": ("forest", "launches"),
     "bin_values": ("ellpack_bin", "launches"),
+    "bitpack_decode": ("bitpack", "launches"),
 }
 
 

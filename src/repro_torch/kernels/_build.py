@@ -27,7 +27,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("histogram", "hist_window", "partition", "forest", "ellpack_bin")
+SOURCES = ("histogram", "hist_window", "partition", "forest", "ellpack_bin", "bitpack")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -51,6 +51,7 @@ SIGNATURES = {
     "forest": ("forest_launch", [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                                  _P, _P]),
     "ellpack_bin": ("ellpack_bin_launch", [_P, _I, _L, _I, _P, _I, _P, _P, _P]),
+    "bitpack": ("bitpack_decode_launch", [_P, _L, _L, _L, _I, _I, _P, _I, _P]),
 }
 
 _lock = threading.Lock()

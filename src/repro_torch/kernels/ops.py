@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import bitpack as _bitpack
 from repro_torch.kernels import ellpack_bin as _ellpack_bin
 from repro_torch.kernels import forest as _forest
 from repro_torch.kernels import histogram as _histogram
@@ -101,6 +102,14 @@ def bin_values(x, padded_edges, n_bins_per_feature):
     if x.is_cuda:
         return _ellpack_bin.bin_values(x, padded_edges, n_bins_per_feature)
     return _ref.bin_values(x, padded_edges, n_bins_per_feature)
+
+
+def bitpack_decode(payload, row_syms: int, bits: int, missing: int | None):
+    """(rows, row_syms) uint8 bins of a row-wise bitpack payload (rows,
+    ceil(row_syms * bits / 8)) uint8; the packed ``missing`` symbol -> 255."""
+    if payload.is_cuda:
+        return _bitpack.bitpack_decode(payload, row_syms, bits, missing)
+    return _ref.bitpack_decode(payload, row_syms, bits, missing)
 
 
 def partition_rows(

@@ -1,8 +1,8 @@
-"""Plain PyTorch versions of the five CUDA kernels (and single-tree predict).
+"""Plain PyTorch versions of the six CUDA kernels (and single-tree predict).
 
 These are the semantics ground truth of `repro_torch.kernels`: each CUDA
 kernel must agree with the function here on the same inputs (partition and
-forest and binning bit for bit; the histogram kernels bit for bit with the
+forest, binning and the bitpack decode bit for bit; the histogram kernels bit for bit with the
 ``*_fixed`` versions, which sum in the kernels' 64-bit fixed point, and to
 f32 summation order with the f32 ones). The f32 versions are the path a CPU
 tensor takes through `kernels.ops`; all are the yardsticks `chip_smoke.py`
@@ -29,6 +29,9 @@ _HIST_ROW_CHUNK = 1 << 16
 # compare cells per chunk of `bin_values`: bounds its (rows, m, B) boolean
 # temporary (100k x 500 x 255 whole would be 12.75 GB)
 _BIN_CHUNK_CELLS = 1 << 24
+# symbols per chunk of `bitpack_decode`: bounds its (rows, row_syms) int32
+# and int64 temporaries (a 67,108 x 500 page whole would be ~0.8 GB)
+_BITPACK_CHUNK_SYMS = 1 << 22
 
 
 def row_slots(positions: torch.Tensor, build_nodes: torch.Tensor) -> torch.Tensor:
@@ -296,3 +299,35 @@ def predict_forest_bins(
             leaf_value[t], max_depth,
         )
     return margin
+
+
+def bitpack_decode(
+    payload: torch.Tensor,  # (rows, ceil(row_syms * bits / 8)) uint8
+    row_syms: int,
+    bits: int,
+    missing: int | None,
+) -> torch.Tensor:
+    """(rows, row_syms) uint8 symbols of a row-wise packed payload: symbol s
+    of a row is the row's bits ``[s * bits, s * bits + bits)``, read
+    little-endian from the low bit of its first byte (two bytes at most for
+    ``bits <= 8``); the packed ``missing`` symbol becomes ``MISSING_BIN``.
+    Rows are decoded in chunks so that the temporaries stay bounded."""
+    rows, row_bytes = payload.shape
+    out = torch.empty((rows, row_syms), dtype=torch.uint8, device=payload.device)
+    if rows * row_syms == 0:
+        return out
+    bit = torch.arange(row_syms, dtype=torch.int64, device=payload.device) * bits
+    byte = bit >> 3
+    shift = (bit & 7).to(torch.int32)
+    has_next = byte + 1 < row_bytes
+    nxt = torch.where(has_next, byte + 1, byte)
+    mask = (1 << bits) - 1
+    step = max(1, _BITPACK_CHUNK_SYMS // row_syms)
+    for lo in range(0, rows, step):
+        blk = payload[lo : lo + step].to(torch.int32)
+        word = blk[:, byte] | torch.where(has_next, blk[:, nxt], 0) << 8
+        sym = (word >> shift) & mask
+        if missing is not None:
+            sym = torch.where(sym == missing, MISSING_BIN, sym)
+        out[lo : lo + step] = sym.to(torch.uint8)
+    return out

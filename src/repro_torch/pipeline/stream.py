@@ -15,6 +15,16 @@ host -> device pipeline that the paper's out-of-core argument rests on:
   device          an optional `DevicePageCache` LRU skips the host->device
                   copy for pages still resident from a previous pass.
 
+With a ``transport`` (`repro_torch.compress.PageTransport`, or the forest
+wire packer) only the wire payload is staged: the host encodes it (a page
+its store wrote with the transport's codec passes as stored), the copy
+moves the payload, and on the card the decode runs on the compute stream
+right after the consumer's wait on the copy's event, so the ring's overlap
+is kept; the consumer sees the decoded page. On the CPU it decodes at once.
+The ledger books both sides: ``logical_bytes`` the decoded page,
+``wire_bytes`` and ``host_to_device_bytes`` the payload, and a cached page
+is charged its payload's size.
+
 Allocator and buffer hazards, and what is done about them:
 
   * a pinned buffer is refilled only after the event of the copy that last
@@ -26,8 +36,8 @@ Allocator and buffer hazards, and what is done about them:
 
 Every boundary crossing is booked in a `TransferStats`: bytes per edge plus
 the overlap ledger. On a CUDA device, stage and compute seconds are device
-times from CUDA events (the copy on the side stream; the consumer's kernels
-on the compute stream, between the page's yield and the consumer's return),
+times from CUDA events (the copy on the side stream; the page's decode and
+the consumer's kernels on the compute stream, up to the consumer's return),
 and each pass ends with a synchronise so its wall time covers the device
 work it launched. Fetch seconds are host clock in the prefetcher thread.
 """
@@ -102,11 +112,14 @@ class _CudaStager:
         self.copy_spans.append((start, done))
         return dev.view(src.dtype).reshape(src.shape), done
 
-    def begin(self, page: torch.Tensor, ready: torch.cuda.Event | None) -> None:
-        """Before the consumer's kernels on ``page``: order them after its copy."""
+    def begin(self, page, ready: torch.cuda.Event | None) -> None:
+        """Before the decode and the consumer's kernels on ``page``: order
+        them after its copy. ``page`` is the staged tensor (a cached page
+        may be a decoded forest chunk's dict, made on the compute stream)."""
         if ready is not None:
             self.compute.wait_event(ready)
-        page.record_stream(self.compute)
+        if isinstance(page, torch.Tensor):
+            page.record_stream(self.compute)
         self._open = self._event()
         self._open.record(self.compute)
 
@@ -157,6 +170,11 @@ class PageStream:
     stats : `TransferStats` sink (defaults to the module-global one).
     retry : `RetryPolicy` for the threaded prefetcher's transient-fault
         retries (None = the policy's defaults).
+    transport : optional `repro_torch.compress.PageTransport` (or the forest
+        wire packer): ``to_array``'s output is encoded on the host, only the
+        wire payload is staged, and the device copy is decoded on the
+        device; the consumer sees the logical page (see the module
+        docstring).
 
     A `PageStream` is re-iterable: each ``iter()`` is an independent pass.
     """
@@ -176,6 +194,7 @@ class PageStream:
         cache_pin: bool = False,
         stats: TransferStats | None = None,
         retry: RetryPolicy | None = None,
+        transport: Any | None = None,
     ):
         self._fetch = fetch
         self._indices = list(indices)
@@ -189,6 +208,7 @@ class PageStream:
         self.cache_pin = cache_pin
         self.stats = stats or GLOBAL_STATS
         self.retry = retry
+        self.transport = transport
 
     # ------------------------------------------------------------ constructors
     @classmethod
@@ -210,10 +230,14 @@ class PageStream:
         **kw,
     ) -> "PageStream":
         """Stream a disk `PageStore`; ``wrap(idx, arrays)`` builds the host
-        page; ``indices`` restricts the pass as in `from_host_pages`."""
+        page; ``indices`` restricts the pass as in `from_host_pages`. With a
+        ``transport``, the members its codec wrote are read undecoded and
+        staged as stored."""
+        transport = kw.get("transport")
+        keep = transport.name if transport is not None else None
 
         def fetch(idx: int) -> Any:
-            arrays = store.read_page(idx)
+            arrays = store.read_page(idx, keep=keep)
             return wrap(idx, arrays) if wrap is not None else arrays
 
         kw.setdefault("threaded", True)
@@ -257,7 +281,9 @@ class PageStream:
 
     # -------------------------------------------------------------- device pass
     def _stage(self, idx: int, host: Any, stager: _CudaStager | None):
-        """(StreamedPage, ready event or None) for one fetched page."""
+        """(StreamedPage, ready event or None, pending decode or None) for
+        one fetched page; the pending decode (wire meta, cache key, wire
+        bytes) is left for `_decode` after the consumer's wait on the copy."""
         key = (self.cache_tag, idx)
         if self.cache is not None:
             entry = self.cache.lookup(key)
@@ -265,22 +291,42 @@ class PageStream:
                 dev, nbytes = entry
                 self.stats.cache_hits += 1
                 self.stats.cache_hit_bytes += nbytes  # host bytes the hit saved
-                return StreamedPage(idx, host, dev), None
+                return StreamedPage(idx, host, dev), None, None
             self.stats.cache_misses += 1
         arr = self._to_array(host)
+        wire, wire_meta = arr, None
+        if self.transport is not None:
+            t0 = time.perf_counter()
+            wire, wire_meta = self.transport.encode(arr)
+            self.stats.stream_stage_seconds += time.perf_counter() - t0
         ready = None
         if stager is not None:
-            dev, ready = stager.stage(arr)
+            dev, ready = stager.stage(wire)
         else:
             t0 = time.perf_counter()
-            dev = torch.from_numpy(np.array(arr, copy=True))
+            dev = torch.from_numpy(np.array(wire, copy=True))
             self.stats.stream_stage_seconds += time.perf_counter() - t0
-        self.stats.host_to_device_bytes += arr.nbytes
+        self.stats.host_to_device_bytes += wire.nbytes
         self.stats.logical_bytes += arr.nbytes
-        self.stats.wire_bytes += arr.nbytes
+        self.stats.wire_bytes += wire.nbytes
+        page = StreamedPage(idx, host, dev)
+        if self.transport is None:
+            if self.cache is not None:
+                self.cache.put(key, dev, wire.nbytes, pinned=self.cache_pin)
+            return page, ready, None
+        pending = (wire_meta, key, wire.nbytes)
+        if stager is None:
+            return self._decode(page, pending), None, None
+        return page, ready, pending
+
+    def _decode(self, page: StreamedPage, pending: tuple) -> StreamedPage:
+        """Decode a staged wire payload on its device, and cache the decoded
+        page charged with its wire bytes."""
+        wire_meta, key, wire_nbytes = pending
+        dev = self.transport.decode(page.device, wire_meta)
         if self.cache is not None:
-            self.cache.put(key, dev, arr.nbytes, pinned=self.cache_pin)
-        return StreamedPage(idx, host, dev), ready
+            self.cache.put(key, dev, wire_nbytes, pinned=self.cache_pin)
+        return page._replace(device=dev)
 
     def __iter__(self) -> Iterator[StreamedPage]:
         stats = self.stats
@@ -305,9 +351,11 @@ class PageStream:
                     inflight.append(self._stage(idx, host, stager))
                 if not inflight:
                     return
-                page, ready = inflight.popleft()
+                page, ready, pending = inflight.popleft()
                 if stager is not None:
                     stager.begin(page.device, ready)
+                    if pending is not None:
+                        page = self._decode(page, pending)
                     yield page
                     stager.end()
                 else:

@@ -42,6 +42,13 @@ with no ready event) is always complete before a later pass reads it. In
 referenced (and `record_stream`-ed on the compute stream) until its last
 chunk's launch has been queued.
 
+Page codecs (`repro_torch.compress`) ride both axes: ``page_codec`` stages
+row pages through the codec's transport (``"bitpack"`` copies packed pages
+and the bitpack decode kernel expands them), and any non-raw codec sends
+forest tree-chunks through `ForestPageTransport` (14 wire bytes a node
+against 24, decoded on the device). Both are lossless, so every mode stays
+bit for bit.
+
 `ForestServer` bundles a packed forest with this machinery (and a persistent
 residency cache, so pins survive across requests) behind
 ``predict``/``predict_margin``; `GradientBooster.predict` delegates here for
@@ -56,9 +63,10 @@ import itertools
 import numpy as np
 import torch
 
+from repro_torch.compress import ForestPageTransport, get_codec
 from repro_torch.core import objectives as obj_lib
 from repro_torch.core.memory import DeviceMemoryModel
-from repro_torch.data.pages import NOT_PORTED_CODEC, TransferStats
+from repro_torch.data.pages import TransferStats
 from repro_torch.kernels import ops
 from repro_torch.pipeline import DevicePageCache, PageStream
 from repro_torch.serve.batcher import ServeStats
@@ -103,6 +111,7 @@ def _forest_stream(
     trees_per_chunk: int,
     stats: TransferStats,
     staging_depth: int = 2,
+    transport: ForestPageTransport | None = None,
     cache: DevicePageCache | None = None,
     pin: bool = False,
     indices=None,
@@ -115,7 +124,9 @@ def _forest_stream(
     pinned in ``cache`` skips the host pack entirely — pinned entries can
     never be evicted, so the staged lookup is guaranteed to hit. The cache
     tag carries the chunk size (``forest/<k>``): chunk geometry is part of a
-    chunk's identity, so differently-sized passes can never alias.
+    chunk's identity, so differently-sized passes can never alias. With a
+    `ForestPageTransport`, each staged chunk crosses as a 14-byte/node wire
+    payload and decodes to the unpacked field dict on the device.
     """
     extents = _chunk_extents(forest, trees_per_chunk)
     tag = f"forest/{trees_per_chunk}"
@@ -130,16 +141,24 @@ def _forest_stream(
         fetch,
         indices if indices is not None else range(len(extents)),
         device=forest.device, stats=stats, cache_tag=tag, cache_pin=pin,
-        staging_depth=staging_depth, cache=cache,
+        staging_depth=staging_depth, cache=cache, transport=transport,
     )
 
 
-def _check_codec(page_codec: str | None) -> None:
-    """A server's rows and forest chunks cross raw: the page codecs (and the
-    forest's wire packer) are not ported. `predict_margin_dmatrix` leaves
-    the check to its row stream (`PageSet.stream`)."""
-    if page_codec not in (None, "raw"):
-        raise NotImplementedError(NOT_PORTED_CODEC.format(page_codec))
+def _forest_transport(page_codec: str | None) -> ForestPageTransport | None:
+    """The forest wire packer when any non-raw page codec is active: the
+    paged forest's chunks ride the same compression policy as row pages."""
+    if page_codec is None or get_codec(page_codec).name == "raw":
+        return None
+    return ForestPageTransport()
+
+
+def _chunk_arrays(fp_device) -> dict:
+    """Unpacked per-field device tensors of one staged forest chunk: already
+    a dict when a transport decoded it on the device."""
+    if isinstance(fp_device, dict):
+        return fp_device
+    return PackedForest.unpack_page(fp_device)
 
 
 def resolve_trees_per_chunk(
@@ -238,14 +257,14 @@ def plan_residency(
     )
 
 
-def _pin_prologue(forest, chunk, n_pin, stats, cache) -> None:
+def _pin_prologue(forest, chunk, n_pin, stats, transport, cache) -> None:
     """Stage chunks [0, n_pin) into the cache's pinned tier (all-hit when a
     previous request already pinned them)."""
     if n_pin <= 0:
         return
     for _ in _forest_stream(
-        forest, chunk, stats, staging_depth=1, cache=cache, pin=True,
-        indices=range(n_pin),
+        forest, chunk, stats, staging_depth=1, transport=transport, cache=cache,
+        pin=True, indices=range(n_pin),
     ):
         pass
 
@@ -280,8 +299,9 @@ def predict_margin_dmatrix(
     Bit for bit the fused forest over `single_page_bins()`: row pages
     partition the batch (per-row work is independent) and tree-chunks chain
     their partial margins in ascending tree order — residency only skips
-    transfers, never reorders accumulation. ``page_codec`` must be None or
-    ``"raw"`` (the page codecs are not ported).
+    transfers, never reorders accumulation. ``page_codec`` (a
+    `repro_torch.compress` codec) shrinks row-page and forest-chunk
+    transfers; the codecs are lossless.
 
     ``cache``/``pin_chunks``/``serve_budget_bytes`` activate the shared-budget
     residency layer (see the module docstring); ``pin_chunks=None`` means
@@ -340,12 +360,15 @@ def predict_margin_dmatrix(
             serve_stats.record_residency(0, 0, stats.host_to_device_bytes - h2d0)
         return margins
 
+    transport = _forest_transport(page_codec)
     if not residency:
         # legacy bill: chunks outermost, every chunk pass re-streams every row
         # page — transfer bill = chunks x pages, ledgered in TransferStats
         n_staged = 0
-        for fp in _forest_stream(forest, chunk, stats, staging_depth=staging_depth):
-            arrays = PackedForest.unpack_page(fp.device)
+        for fp in _forest_stream(
+            forest, chunk, stats, staging_depth=staging_depth, transport=transport
+        ):
+            arrays = _chunk_arrays(fp.device)
             n_staged += 1
             for sp in data_stream():
                 ro, nr = sp.host.row_offset, sp.host.n_rows
@@ -362,7 +385,7 @@ def predict_margin_dmatrix(
         chunk_bytes(forest, chunk), data_bytes, pages.n_pages, cache.max_bytes,
         reserve_bytes=worst_rows * m, pin=pin_chunks is not False,
     )
-    _pin_prologue(forest, chunk, plan.n_pinned, stats, cache)
+    _pin_prologue(forest, chunk, plan.n_pinned, stats, transport, cache)
 
     if plan.order == "chunks_outer":
         # the pinned prefix plus the first streamed chunk share one row-page
@@ -374,10 +397,10 @@ def predict_margin_dmatrix(
         for group in groups:
             resident: dict[int, dict] = {}
             for fp in _forest_stream(
-                forest, chunk, stats, staging_depth=staging_depth, cache=cache,
-                indices=group,
+                forest, chunk, stats, staging_depth=staging_depth,
+                transport=transport, cache=cache, indices=group,
             ):
-                resident[fp.index] = PackedForest.unpack_page(fp.device)
+                resident[fp.index] = _chunk_arrays(fp.device)
             for sp in data_stream():
                 ro, nr = sp.host.row_offset, sp.host.n_rows
                 margin = margin_in(ro, nr)
@@ -386,15 +409,14 @@ def predict_margin_dmatrix(
                 store(ro, nr, margin)
     else:  # pages_outer: rows stream once, chunks re-resolve per page
         fstream = _forest_stream(
-            forest, chunk, stats, staging_depth=staging_depth, cache=cache
+            forest, chunk, stats, staging_depth=staging_depth,
+            transport=transport, cache=cache,
         )
         for sp in data_stream():
             ro, nr = sp.host.row_offset, sp.host.n_rows
             margin = margin_in(ro, nr)
             for fp in fstream:  # fresh pass per page, ascending tree order
-                margin = _apply_chunk(
-                    forest, PackedForest.unpack_page(fp.device), sp.device, margin
-                )
+                margin = _apply_chunk(forest, _chunk_arrays(fp.device), sp.device, margin)
             store(ro, nr, margin)
 
     if serve_stats is not None:
@@ -419,7 +441,8 @@ class ForestServer:
     remainder. ``pin_chunks=False`` forces the legacy re-streaming path;
     ``serve_stats`` (shareable with a `BatchServer`) receives the residency
     ledger and supplies measured launch shapes for chunk sizing. All
-    transfer traffic lands on ``self.stats``.
+    transfer traffic lands on ``self.stats``; ``page_codec`` compresses it
+    as in `predict_margin_dmatrix`.
     """
 
     def __init__(
@@ -434,7 +457,6 @@ class ForestServer:
         serve_budget_bytes: int | None = None,
         serve_stats: ServeStats | None = None,
     ):
-        _check_codec(page_codec)
         self.forest = (
             forest_or_booster
             if isinstance(forest_or_booster, PackedForest)
@@ -522,6 +544,7 @@ class ForestServer:
         if forest.cuts is None:
             raise ValueError("PackedForest has no cuts; predict from bins instead")
         h2d0 = self.stats.host_to_device_bytes
+        transport = _forest_transport(self.page_codec)
         cache = self._ensure_cache(batch_rows)
         h_pre, m_pre = cache.tag_counts("forest") if cache is not None else (0, 0)
         if cache is not None:
@@ -531,12 +554,14 @@ class ForestServer:
                 chunk_bytes(forest, chunk), 0, 1, cache.max_bytes,
                 pin=self.pin_chunks is not False,
             )
-            _pin_prologue(forest, chunk, plan.n_pinned, self.stats, cache)
+            _pin_prologue(forest, chunk, plan.n_pinned, self.stats, transport, cache)
         bins = forest.quantize(X)
         margin = torch.full((X.shape[0],), forest.base_margin, dtype=torch.float32,
                             device=forest.device)
-        for fp in _forest_stream(forest, chunk, self.stats, cache=cache):
-            margin = _apply_chunk(forest, PackedForest.unpack_page(fp.device), bins, margin)
+        for fp in _forest_stream(
+            forest, chunk, self.stats, transport=transport, cache=cache
+        ):
+            margin = _apply_chunk(forest, _chunk_arrays(fp.device), bins, margin)
         if self.serve_stats is not None:
             h_post, m_post = (
                 cache.tag_counts("forest") if cache is not None else (0, 0)

@@ -176,20 +176,25 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, fitted, tmp_pat
     "lossguide", "out_of_core", "hist_budget",
 ])
 def test_unported_paths_raise_not_implemented(case, data, tmp_path):
-    """The one unported corner still raises: a page cache the reference
-    wrote compressed ("out_of_core"). Best-first growth ("lossguide") and
-    the budgeted histogram store ("hist_budget") are ported: they fit the
-    reference's trees, and the budgeted fit books the reference's spills."""
+    """Corners that were once unported now fit the reference's trees: a page
+    cache the reference wrote bitpacked ("out_of_core", streamed and decoded
+    by the port), best-first growth ("lossguide") and the budgeted histogram
+    store ("hist_budget", which also books the reference's spills)."""
     from repro.core.policy import ExecutionPolicy as JPolicy
+    from repro.data.dmatrix import PagedDMatrix as JPagedDMatrix
 
     X, y, Xe, _ = data
     kw = dict(PARAMS, n_estimators=1)
     if case == "out_of_core":
         cache = str(tmp_path / "bitpack")
         JIterDMatrix([(X, y)], max_bin=MAX_BIN, cache_dir=cache, page_codec="bitpack")
-        b = GradientBooster(device="cpu", policy=ExecutionPolicy(mode="out_of_core"), **kw)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            b.fit(PagedDMatrix(cache))
+        policy = ExecutionPolicy(mode="out_of_core", page_codec="bitpack")
+        port = GradientBooster(device="cpu", policy=policy, **kw).fit(PagedDMatrix(cache))
+        ref = JBooster(policy=JPolicy(mode="out_of_core", page_codec="bitpack"), **kw)
+        ref.fit(JPagedDMatrix(cache))
+        assert_forests_equal(port.trees, ref.trees)
+        assert port.stats.wire_bytes == ref.stats.wire_bytes < port.stats.logical_bytes
+        assert port.stats.logical_bytes == ref.stats.logical_bytes
         return
     kw.update(n_estimators=2, objective="binary:logistic")
     policy, jpolicy = ExecutionPolicy(), JPolicy()

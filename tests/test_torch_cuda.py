@@ -1028,3 +1028,146 @@ def test_plain_scatters_same_bits_every_call(dev):
     assert torch.equal(ref.build_histogram_nodes(*cpu, n_bins),
                        ref.build_histogram_nodes(bins[:4096], g[:4096], h[:4096], pos[:4096],
                                                  nodes, n_bins).cpu())
+
+
+@pytest.mark.parametrize("mode", ["f16", "bf16", "int8"])
+def test_spill_quantizer_same_bits_every_call(dev, mode):
+    """The histogram spill's narrowing casts and the int8 transport's
+    ``amax`` scale give one bit pattern in 30 calls, at a 64-node level of
+    the paper's width, and equal the CPU's."""
+    from repro_torch.compress import GradQuantizer
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    hist = torch.randn((64, 500, 255, 2), generator=gen, device=dev) * 100.0
+    q = GradQuantizer(mode)
+    assert _same_bits(lambda: q.quantize(hist)[0])
+    if mode == "int8":
+        assert _same_bits(lambda: hist.abs().amax())
+        assert _same_bits(lambda: q.quantize(hist)[1])
+    payload, scale = q.quantize(hist)
+    cpu_payload, cpu_scale = q.quantize(hist.cpu())
+    assert torch.equal(payload.cpu(), cpu_payload)
+    if scale is not None:
+        assert torch.equal(scale.cpu(), cpu_scale)
+    assert torch.equal(q.dequantize(payload, scale).cpu(), q.dequantize(cpu_payload, cpu_scale))
+
+
+# ------------------------------------------------- compression (bitpack, transports)
+def _packed_page(rng, rows, cols, bits, missing):
+    from repro_torch.compress import BitpackCodec
+
+    top = (1 << bits) - 2 if missing else min((1 << bits) - 1, 254)
+    page = rng.integers(0, top + 1, size=(rows, cols)).astype(np.uint8)
+    page[0, 0] = top
+    if missing:
+        page[rng.random(page.shape) < 0.1] = 255
+        page[min(3, rows - 1)] = 255  # an all-missing row
+        page[0, 0] = top
+    payload, meta = BitpackCodec().encode(page)
+    assert meta["bits"] == bits
+    return page, payload, meta
+
+
+@pytest.mark.parametrize("bits", range(1, 9))
+@pytest.mark.parametrize("missing", [False, True])
+@pytest.mark.parametrize("rows,cols", [(1000, 500), (37, 11), (5, 1), (1, 4099)])
+def test_bitpack_decode_kernel_matches_plain(dev, bits, missing, rows, cols):
+    """The decode kernel equals its plain version and the page bit for bit
+    at every width, rows that do not fill a byte among them."""
+    from repro_torch.kernels import bitpack as k_bitpack
+
+    rng = np.random.default_rng(bits * 100 + rows + cols)
+    page, payload, meta = _packed_page(rng, rows, cols, bits, missing)
+    before = k_bitpack.launches
+    got = k_bitpack.bitpack_decode(torch.from_numpy(payload).to(dev), cols, bits,
+                                   meta["missing"])
+    torch.cuda.synchronize()
+    assert k_bitpack.launches == before + 1
+    want = ref.bitpack_decode(torch.from_numpy(payload), cols, bits, meta["missing"])
+    assert got.dtype == torch.uint8 and torch.equal(got.cpu(), want)
+    assert np.array_equal(want.numpy(), page)
+
+
+def test_bitpack_decode_kernel_at_a_page_shape(dev):
+    """One 32 MiB streaming page (67,108 x 500) at 8 bits, and at 6 bits
+    with missing values (max_bin 32)."""
+    from repro_torch.kernels import bitpack as k_bitpack
+
+    rng = np.random.default_rng(5)
+    for bits, missing in ((8, False), (6, True)):
+        page, payload, meta = _packed_page(rng, 67_108, 500, bits, missing)
+        got = k_bitpack.bitpack_decode(torch.from_numpy(payload).to(dev), 500, bits,
+                                       meta["missing"])
+        assert np.array_equal(got.cpu().numpy(), page)
+
+
+def test_bitpack_decode_kernel_rejects_bad_arguments(dev):
+    from repro_torch.kernels import bitpack as k_bitpack
+
+    rng = np.random.default_rng(6)
+    _, payload, meta = _packed_page(rng, 20, 9, 5, True)
+    p = torch.from_numpy(payload).to(dev)
+    for call, err in (
+        (lambda: k_bitpack.bitpack_decode(p, 9, 9, None), ValueError),  # bits
+        (lambda: k_bitpack.bitpack_decode(p, 9, 0, None), ValueError),
+        (lambda: k_bitpack.bitpack_decode(p, 10, 5, None), ValueError),  # row stride
+        (lambda: k_bitpack.bitpack_decode(p.reshape(-1), 9, 5, None), ValueError),
+        (lambda: k_bitpack.bitpack_decode(p.to(torch.int32), 9, 5, None), TypeError),
+        (lambda: k_bitpack.bitpack_decode(p[:, :-1], 9, 5, None), ValueError),
+        (lambda: k_bitpack.bitpack_decode(p, 9, 5, 32), ValueError),  # missing symbol
+        (lambda: k_bitpack.bitpack_decode(
+            torch.cat([p, p], 1)[:, : p.shape[1]], 9, 5, None), ValueError),  # strided
+    ):
+        with pytest.raises(err):
+            call()
+
+
+def test_forest_transport_on_the_card(dev):
+    """Forest chunks at an odd node count decode on the card to the CPU's
+    fields, and a chunked forest served through the transport equals the
+    raw server bit for bit."""
+    from repro_torch.compress import ForestPageTransport
+    from repro_torch.serve import ForestServer
+
+    X, _, forest = _served(dev)
+    assert (3 * forest.n_total) % 2 == 1  # an odd n: leaf_value is unaligned
+    page = forest.pack_page(0, 3)
+    wire, meta = ForestPageTransport().encode(page)
+    got = ForestPageTransport().decode(torch.from_numpy(wire).to(dev), meta)
+    want = ForestPageTransport().decode(torch.from_numpy(wire), meta)
+    for key, val in want.items():
+        assert got[key].is_cuda and torch.equal(got[key].cpu(), val), key
+    raw = ForestServer(forest, trees_per_chunk=5).predict_margin(X[:2000])
+    packed = ForestServer(forest, trees_per_chunk=5, page_codec="bitpack")
+    assert np.array_equal(packed.predict_margin(X[:2000]), raw)
+    assert packed.stats.wire_bytes * 24 == packed.stats.logical_bytes * 14
+
+
+def test_bitpack_stream_and_fits_on_the_card(dev, tmp_path):
+    """A bitpack store streams to the card as stored and decodes to the raw
+    pages; streaming and in-core fits under bitpack equal the raw fits."""
+    from repro_torch.data.dmatrix import PagedDMatrix
+    from repro_torch.kernels import bitpack as k_bitpack
+
+    X, y = make_classification(30_000, 40, missing_rate=0.05, seed=9)
+    batches = [(X[i : i + 10_000], y[i : i + 10_000]) for i in range(0, 30_000, 10_000)]
+    raw_dm = IterDMatrix(batches, max_bin=32, cache_dir=str(tmp_path / "raw"),
+                         page_bytes=40 * 4096, device=dev)
+    IterDMatrix(batches, max_bin=32, cuts=raw_dm.cuts, cache_dir=str(tmp_path / "bp"),
+                page_bytes=40 * 4096, page_codec="bitpack", device=dev)
+    bp = PagedDMatrix(str(tmp_path / "bp"))
+    want = [p.bins for _, p in raw_dm.page_set().iter_pages()]
+    before = k_bitpack.launches
+    got = [sp.device.cpu().numpy() for sp in bp.page_set().stream(device=dev, codec="bitpack")]
+    assert k_bitpack.launches == before + len(want) and len(want) > 1
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    params = dict(n_estimators=2, max_depth=5, max_bin=32, objective="binary:logistic")
+    for mode in ("out_of_core", "in_core"):
+        fits = [
+            GradientBooster(device=dev, policy=ExecutionPolicy(mode=mode, page_codec=c),
+                            **params).fit(PagedDMatrix(str(tmp_path / d)))
+            for c, d in (("raw", "raw"), ("bitpack", "bp"))
+        ]
+        for a, b in zip(fits[0].trees, fits[1].trees):
+            assert all(torch.equal(u, v) for u, v in zip(a, b)), mode
+        assert fits[1].stats.wire_bytes < 0.8 * fits[1].stats.logical_bytes

@@ -304,8 +304,13 @@ def test_store_validates_arguments():
         HistogramStore(budget_bytes=-1)
     with pytest.raises(ValueError, match="retained_levels"):
         HistogramStore(retained_levels=0)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        HistogramStore(grad_transport="f16")
+    with pytest.raises(ValueError, match="grad transport") as err:
+        HistogramStore(grad_transport="fp4")
+    with pytest.raises(ValueError) as jerr:
+        JStore(grad_transport="fp4")
+    assert str(err.value) == str(jerr.value)
+    assert HistogramStore(grad_transport="f16").quantizer.mode == JStore(
+        grad_transport="f16").quantizer.mode == "f16"
     with pytest.raises(ValueError, match="hist_budget_bytes"):
         ExecutionPolicy(hist_budget_bytes=-1)
     with pytest.raises(ValueError, match="hist_retained_levels"):

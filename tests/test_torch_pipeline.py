@@ -136,15 +136,22 @@ def test_prefetcher_gives_up_after_its_attempt_budget(tmp_path):
 
 
 def test_unported_codecs_raise(tmp_path):
-    """A cache the reference wrote compressed opens, and reading a page
-    raises: only the raw codec is ported."""
-    store = j_pages.PageStore(str(tmp_path / "bp"), stats=j_pages.TransferStats(),
-                              codec="bitpack")
-    store.write_page({"bins": _pages()[0] % 16}, {"row_offset": 0, "n_rows": 30})
-    port = PageStore(str(tmp_path / "bp"))
-    assert port.n_pages == 1
-    with pytest.raises(NotImplementedError, match="'bitpack' is not ported.*item 8"):
-        port.read_page(0)
+    """A cache the reference wrote compressed opens and reads the
+    reference's arrays: the bitpack, delta-rle and chained codecs, in zstd
+    blobs too."""
+    for name, compress in (("bitpack", False), ("delta-rle", True), ("bitpack+delta-rle", True)):
+        root = str(tmp_path / name.replace("+", "_"))
+        store = j_pages.PageStore(root, stats=j_pages.TransferStats(), codec=name,
+                                  compress=compress)
+        store.write_page({"bins": _pages()[0] % 16, "labels": np.arange(30, dtype=np.float32)},
+                         {"row_offset": 0, "n_rows": 30})
+        port = PageStore(root)
+        assert port.n_pages == 1 and port.page_meta(0)["codec"] == name
+        got, want = port.read_page(0), store.read_page(0)
+        assert got.keys() == want.keys()
+        for key in want:
+            assert got[key].dtype == want[key].dtype
+            np.testing.assert_array_equal(got[key], want[key])
 
 
 def _cache_ops(seed, n_ops=300):

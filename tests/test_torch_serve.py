@@ -374,22 +374,28 @@ def test_zero_row_dmatrix_returns_base_margins(pair):
 
 
 def test_forest_needs_cuts_and_raw_codecs(pair):
-    X, _, port, _ = pair
+    X, ref, port, _ = pair
     blind = dataclasses.replace(port.packed_forest(), cuts=None)
     with pytest.raises(ValueError, match="no cuts"):
         blind.predict_margin(X)
     with pytest.raises(ValueError, match="no cuts"):
         ForestServer(blind, trees_per_chunk=1).predict_margin(X)
     tdm = ArrayDMatrix(X, cuts=port.cuts, max_bin=MAX_BIN, device="cpu")
-    for call in (
-        lambda: predict_margin_dmatrix(port.packed_forest(), tdm, page_codec="bitpack"),
-        lambda: ForestServer(port, page_codec="delta-rle"),
-        lambda: tdm.page_set().stream(device="cpu", codec="bitpack"),
-    ):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            call()
+    jdm = JArrayDMatrix(X, cuts=ref.cuts, max_bin=MAX_BIN)
     raw = predict_margin_dmatrix(port.packed_forest(), tdm, page_codec="raw")
     assert np.array_equal(raw, port.predict_margin(X))
+    # the page codecs are lossless: every codec serves the raw margins, as
+    # the reference's do
+    for codec in ("bitpack", "delta-rle"):
+        got = predict_margin_dmatrix(port.packed_forest(), tdm, trees_per_chunk=2,
+                                     page_codec=codec)
+        want = jengine.predict_margin_dmatrix(ref.packed_forest(), jdm, trees_per_chunk=2,
+                                              page_codec=codec)
+        assert np.array_equal(got, raw) and np.array_equal(got, np.asarray(want))
+        server = ForestServer(port, trees_per_chunk=2, page_codec=codec)
+        assert np.array_equal(server.predict_margin(X), raw)
+    (page,) = list(tdm.page_set().stream(device="cpu", codec="bitpack"))
+    assert torch.equal(page.device, torch.from_numpy(tdm.single_page_bins()))
 
 
 def test_page_stream_keys_its_cache_by_tag_and_pins(pair):
