@@ -170,10 +170,32 @@ Phases, each of which fails the run on error:
      rows, bit for bit the raw server, each chunk's wire bytes 14/24 of raw
      (228,928 against 392,448 B), and a pinned server whose second request
      stages nothing.
+  12. the sharded trainer (`repro_torch.distributed.gbdt_shard`, the
+     paper's §2.2 histogram all-reduce): (a) (after phase 11 (c), on phase
+     2's matrix) `fit_sharded` on a world of one, 4 trees, bit for bit phase
+     2's first 4 trees; then (after phase 11 (a), on phase 6's pages) 4 rank
+     processes share the card over gloo (NCCL refuses two ranks on one
+     device), each this script run with ``--shard-rank``: (b) 4 trees
+     data-parallel, 250,000 rows a rank, twice (the runs bit for bit
+     equal, every rank's trees equal), eval AUC within 1e-4 of (a), the
+     share of split nodes equal to (a)'s and the largest eval margin
+     difference printed, a predict through kernel 3; (c) 2 x 2 data x
+     feature, 2 trees, eval AUC within 1e-4 of (a)'s after 2; (d)
+     `grow_tree_distributed_paged` over the 15 pages, one tree, each rank
+     staging only its rows (a quarter of the single process's bytes, within
+     0.2-0.3), eval AUC within 1e-3 of phase 6's first tree, the share of
+     equal nodes printed; (e) lossguide at 64 leaves, one tree, again under
+     a 16-node ``hist_budget_bytes`` (bit for bit the unbudgeted tree); (f)
+     phase 11 (b)'s 200,000 rows at ``max_bin=32``, 2 trees: bitpack
+     staging bit for bit raw, an f16 all-reduce within 0.02 AUC of raw.
+     Each rank prints seconds a tree, the all-reduce's seconds, bytes and
+     calls a tree, and its launches, which the kernels line adds as the
+     sharded path (every kernel must be launched on it).
 
 The streaming and sampled fits' device-memory peaks above their starts must
 stay within the budget their policy decided under (phases 6 and 6b). The card's compute mode must be
-Default: the elastic phase runs three processes on it.
+Default: the elastic phase runs three processes on it, the sharded phase
+four. The widths come from ``src/repro_torch/configs/xgb_paper.py``.
 
 It prints a JSON line of per-kernel numbers, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. It imports nothing
@@ -198,7 +220,6 @@ FP64_OPS_PER_S = 34e12  # H100 SXM f64 outside the tensor cores
 PAGE_BYTES = 32 * 1024 * 1024
 AUC_TOLERANCE = 1e-3  # streaming vs in-core eval AUC after 4 trees
 SAMPLED_AUC_TOLERANCE = 0.01  # sampled (f = 0.1) vs streaming eval AUC after 4 trees
-SAMPLING_F = 0.1  # the paper config's sampling_f (configs/xgb_paper.py, Table 1's ratio)
 SPIN_CYCLES = 40_000_000  # ~20 ms of the SM clock (up to 1.98 GHz)
 
 
@@ -238,7 +259,12 @@ def main(argv=None) -> int:
     ap.add_argument("--trees", type=int, default=10)
     ap.add_argument("--stream-trees", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    # phase 12's rank processes: the script runs itself once per rank
+    ap.add_argument("--shard-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--shard-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.shard_rank is not None:
+        return shard_rank_main(args)
 
     import torch
 
@@ -249,6 +275,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: {ROOT} is not a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    _load_paper_config()
     import numpy as np
 
     from repro_torch.core.booster import GradientBooster
@@ -288,22 +315,23 @@ def main(argv=None) -> int:
 
     # 2. in-core path --------------------------------------------------------
     t0 = time.perf_counter()
-    X, y = make_classification(args.rows, 500, seed=args.seed)
-    Xe, ye = make_classification(100_000, 500, seed=args.seed, batch=1)
+    m = PAPER.num_features
+    X, y = make_classification(args.rows, m, seed=args.seed)
+    Xe, ye = make_classification(100_000, m, seed=args.seed, batch=1)
     print(f"data: {args.rows} x 500 train, 100000 x 500 eval, {time.perf_counter() - t0:.1f} s")
     params = dict(
-        n_estimators=args.trees, max_depth=8, learning_rate=0.1, max_bin=256,
-        objective="binary:logistic",
+        n_estimators=args.trees, max_depth=PAPER.max_depth, learning_rate=PAPER.learning_rate,
+        max_bin=PAPER.max_bin, objective=PAPER.objective,
     )
     t0 = time.perf_counter()
-    sketch = QuantileSketch(500, max_bin=255)
+    sketch = QuantileSketch(m, max_bin=PAPER.n_bins)
     sketch.update(X)
     cuts = sketch.finalize()
     sketch_s = time.perf_counter() - t0
     zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    dm = ArrayDMatrix(X, y, max_bin=256, cuts=cuts, device=dev)
+    dm = ArrayDMatrix(X, y, max_bin=PAPER.max_bin, cuts=cuts, device=dev)
     torch.cuda.synchronize()
     binning_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -347,6 +375,9 @@ def main(argv=None) -> int:
 
     # 11 (c). the histogram spill's quantized transports on the same matrix
     grad_launches = compression_grad_phase(dev, dm, Xe, ye, params)
+
+    # 12 (a). the sharded trainer on a world of one, on the same matrix
+    shard_one = sharded_world_of_one(dev, dm, booster, Xe, ye, params)
     del dm
 
     # 4. determinism: two fits on a 200k-row subset grow identical trees ------
@@ -380,7 +411,7 @@ def main(argv=None) -> int:
         zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sdm = IterDMatrix(batches, max_bin=256, cuts=booster.cuts, cache_dir=cache,
+        sdm = IterDMatrix(batches, max_bin=PAPER.max_bin, cuts=booster.cuts, cache_dir=cache,
                           page_bytes=PAGE_BYTES, device=dev)
         pages_s = time.perf_counter() - t0
         page_bin_launches = k_bin.launches
@@ -470,6 +501,10 @@ def main(argv=None) -> int:
             raise SystemExit(f"streaming peak {stream_peak} not below in-core {in_core_peak}")
         if not (np.all(np.isfinite(stream_margin)) and stream_margin.shape == (100_000,)):
             raise SystemExit("streaming path output wrong")
+        # what phase 12 (d) holds the sharded paged build against
+        stream_tree0 = [a.cpu() for a in sb.trees[0]]
+        stream_auc1 = sb.eval_history[0].value
+        stream_h2d_tree = st.host_to_device_bytes / n_stream
         page_kernel_checks(args.seed, dev, sdm, sb.trees[0])
         del sb, sdm
         # where one page fetch goes (host clock, median of 5): the read, the
@@ -507,10 +542,20 @@ def main(argv=None) -> int:
         # 11 (a). the bitpack decode kernel, and on phase 6's first page
         bitpack_row = bitpack_kernel_checks(args.seed, dev, cache)
 
+        # 12 (b)-(f). the sharded trainer, 4 ranks on the card, on the same pages
+        sharded_launches = sharded_phase(
+            args.seed, dev, cache, stream_params, Xe, ye, shard_one, stream_tree0, stream_auc1,
+            stream_h2d_tree,
+        )
+        _add_counts(sharded_launches, shard_one["counts"])
+        if not all(sharded_launches.get(k, 0) > 0 for k in SHARD_PATH):
+            raise SystemExit(f"a kernel of the sharded path was never launched: "
+                             f"{sharded_launches}")
+
     # 7. determinism of the streaming path ------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pages_") as cache:
         sub_batches = [(X[i : i + batch_rows], y[i : i + batch_rows]) for i in range(0, sub, batch_rows)]
-        IterDMatrix(sub_batches, max_bin=256, cuts=booster.cuts, cache_dir=cache,
+        IterDMatrix(sub_batches, max_bin=PAPER.max_bin, cuts=booster.cuts, cache_dir=cache,
                     page_bytes=PAGE_BYTES, device=dev)
         det_policy = ExecutionPolicy(mode="out_of_core", staging_depth=2)
         det = [
@@ -546,7 +591,7 @@ def main(argv=None) -> int:
             for path in (in_core_launches, stream_launches, sampled_launches, elastic_launches,
                          serving_launches, lg_core_launches, lg_paged_launches,
                          lg_elastic_launches, grad_launches, serve_codec_launches,
-                         stream_codec_launches)
+                         stream_codec_launches, sharded_launches)
         )
     i = next(i for i, r in enumerate(results) if r["name"] == "predict_forest")
     results.insert(i + 1, chunk_row)
@@ -579,7 +624,7 @@ def sampled_phase(dev, cache: str, params: dict, budget: int, Xe, ye, stream_auc
     from repro_torch.data.dmatrix import PagedDMatrix
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
-    cfg = SamplingConfig(method="mvs", f=SAMPLING_F)
+    cfg = SamplingConfig(method="mvs", f=PAPER.sampling_f)
     n_trees, depth = params["n_estimators"], params["max_depth"]
     sdm = PagedDMatrix(cache)
     sb = GradientBooster(device=dev, policy=ExecutionPolicy(mode="auto",
@@ -653,12 +698,12 @@ def sampled_phase(dev, cache: str, params: dict, budget: int, Xe, ye, stream_auc
           f"kept rows a tree {kept} (capacity {capacity}); compacted page "
           f"{capacity} x {sdm.num_features} uint8")
     print(f"sampled memory: peak above start {peak} B, byte model's sampled need "
-          f"{model.sampled_bytes(n, SAMPLING_F)} B, budget {budget} B: within the budget "
+          f"{model.sampled_bytes(n, PAPER.sampling_f)} B, budget {budget} B: within the budget "
           f"{peak <= budget}")
     print(f"sampled eval_auc after {n_trees} trees={auc_s:.6f} streaming={stream_auc:.6f} "
           f"|diff|={abs(auc_s - stream_auc):.6f}")
     print(f"sampled path launches: {json.dumps(launches)}")
-    if not (sb.decision_.mode == "sampled" and sb.decision_.sampling_f == SAMPLING_F):
+    if not (sb.decision_.mode == "sampled" and sb.decision_.sampling_f == PAPER.sampling_f):
         raise SystemExit(f"the sampled path decided {sb.decision_}")
     if not launches["build_histogram_nodes"] == launches["partition_rows"] == n_trees * depth:
         raise SystemExit(f"histogram/partition not launched once a level of each tree: "
@@ -754,7 +799,7 @@ def sampled_determinism(dev, cache: str, X, y, Xe, cuts, params: dict) -> None:
     from repro_torch.data.dmatrix import PagedDMatrix
 
     threshold_repeatability(dev, 1_000_000)
-    kw = dict(params, n_estimators=3, sampling=SamplingConfig(method="mvs", f=SAMPLING_F))
+    kw = dict(params, n_estimators=3, sampling=SamplingConfig(method="mvs", f=PAPER.sampling_f))
     paged = [GradientBooster(device=dev, policy=ExecutionPolicy(mode="out_of_core"), **kw)
              .fit(PagedDMatrix(cache)) for _ in range(2)]
     core = [GradientBooster(device=dev, **kw).fit(X, y, cuts=cuts) for _ in range(2)]
@@ -770,7 +815,7 @@ def sampled_determinism(dev, cache: str, X, y, Xe, cuts, params: dict) -> None:
                          f"{core[0].decision_.mode}")
     if not torch.equal(paged[0].margins_, paged[1].margins_):
         raise SystemExit("two sampled fits on the same pages gave different training margins")
-    print(f"determinism: two sampled fits (MVS, f={SAMPLING_F}) on {len(X)} rows "
+    print(f"determinism: two sampled fits (MVS, f={PAPER.sampling_f}) on {len(X)} rows "
           f"({paged[0].pages.n_pages} pages) grew 3 identical trees and equal margins; two "
           f"in-core MVS fits on the same rows grew 3 identical trees")
 
@@ -789,13 +834,13 @@ def threshold_repeatability(dev, n: int, calls: int = 30) -> None:
 
     g_hat = torch.rand(n, generator=gen(n), device=dev).square()
     g, h = torch.randn(n, generator=gen(n + 1), device=dev), g_hat + 0.01
-    cfg = SamplingConfig(method="mvs", f=SAMPLING_F)
+    cfg = SamplingConfig(method="mvs", f=PAPER.sampling_f)
 
     def distinct(fn) -> int:
         return len({fn().cpu().numpy().tobytes() for _ in range(calls)})
 
     n_scan = distinct(lambda: prefix_sums(g_hat))
-    n_mu = distinct(lambda: mvs_threshold(g_hat, SAMPLING_F * n))
+    n_mu = distinct(lambda: mvs_threshold(g_hat, PAPER.sampling_f * n))
     n_draw = distinct(lambda: torch.cat([t.view(torch.uint8) for t in sample(gen(7), g, h, cfg)]))
     n_cumsum = distinct(lambda: torch.cumsum(g_hat, 0))
     print(f"MVS threshold on {n} values, {calls} calls: prefix_sums gave {n_scan} distinct "
@@ -1127,8 +1172,8 @@ def elastic_phase(seed: int, dev, params: dict, path_kernels) -> tuple[dict, dic
 
     n_rows, n_trees, depth = 400_000, 4, params["max_depth"]
     t0 = time.perf_counter()
-    X, y = make_classification(n_rows, 500, seed=seed)
-    Xe, ye = make_classification(50_000, 500, seed=seed, batch=2)
+    X, y = make_classification(n_rows, PAPER.num_features, seed=seed)
+    Xe, ye = make_classification(50_000, PAPER.num_features, seed=seed, batch=2)
     print(f"elastic data: {n_rows} x 500 train, 50000 x 500 eval, "
           f"{time.perf_counter() - t0:.1f} s")
     eparams = BoosterParams(**dict(params, n_estimators=n_trees))
@@ -1139,7 +1184,7 @@ def elastic_phase(seed: int, dev, params: dict, path_kernels) -> tuple[dict, dic
         reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        dirs = prepare_shards(X, y, 2, f"{root}/shards", max_bin=256, page_bytes=PAGE_BYTES,
+        dirs = prepare_shards(X, y, 2, f"{root}/shards", max_bin=PAPER.max_bin, page_bytes=PAGE_BYTES,
                               device=dev)
         prep_s = time.perf_counter() - t0
         shard_rows = [[nr for _, nr in PagedDMatrix(d).page_set().page_extents] for d in dirs]
@@ -1207,7 +1252,7 @@ def elastic_phase(seed: int, dev, params: dict, path_kernels) -> tuple[dict, dic
         single = GradientBooster(eparams, device=dev, policy=ExecutionPolicy(mode="out_of_core"))
         batches = [(X[i : i + 100_000], y[i : i + 100_000]) for i in range(0, n_rows, 100_000)]
         t0 = time.perf_counter()
-        single.fit(IterDMatrix(batches, max_bin=256, cuts=a.cuts, cache_dir=f"{root}/single",
+        single.fit(IterDMatrix(batches, max_bin=PAPER.max_bin, cuts=a.cuts, cache_dir=f"{root}/single",
                                page_bytes=PAGE_BYTES, device=dev))
         single_s = time.perf_counter() - t0
         elastic_auc, single_auc = auc(ye, margin), auc(ye, single.predict_margin(Xe))
@@ -2373,7 +2418,7 @@ def lossguide_paged_phase(dev, cache: str, params: dict, Xe, ye, core_auc: dict)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fb = GradientBooster(device=dev, policy=forced, sampling=SamplingConfig(
-        method="mvs", f=SAMPLING_F), **dict(params, n_estimators=2, grow_policy="lossguide",
+        method="mvs", f=PAPER.sampling_f), **dict(params, n_estimators=2, grow_policy="lossguide",
                                              max_leaves=64)).fit(sdm, eval_set=(Xe, ye))
     torch.cuda.synchronize()
     f_s = time.perf_counter() - t0
@@ -2457,11 +2502,11 @@ def sampled_budget_check(dev, cache: str, params: dict) -> None:
     from repro_torch.data.dmatrix import PagedDMatrix
 
     sdm = PagedDMatrix(cache)
-    cfg = SamplingConfig(method="mvs", f=SAMPLING_F)
+    cfg = SamplingConfig(method="mvs", f=PAPER.sampling_f)
     bp = BoosterParams(**dict(params, n_estimators=2), sampling=cfg)
     model = ExecutionPolicy().memory_model(sdm, bp)
-    modeled = model.sampled_bytes(sdm.n_rows, SAMPLING_F)
-    kept = int(sdm.n_rows * SAMPLING_F)
+    modeled = model.sampled_bytes(sdm.n_rows, PAPER.sampling_f)
+    kept = int(sdm.n_rows * PAPER.sampling_f)
     capacity = GradientBooster(bp, device=dev)._sampled_capacity(sdm.n_rows, cfg)
     extra = (capacity - kept) * (sdm.num_features + model.row_state_bytes)
     budget = modeled + extra // 2
@@ -2777,6 +2822,366 @@ def compression_stream_phase(seed: int, dev, params: dict, n_rows: int = 200_000
         print("codecs (b): bitpack in-core trees == raw (bitwise)")
     print(f"codecs (b): {time.perf_counter() - t_phase:.3f} s in all")
     return total
+
+
+# --------------------------------------------------------- phase 12: sharded
+SHARD_WORLD = 4  # ranks sharing the card in (b)-(f)
+SHARD_TIMEOUT_S = 60  # every collective of a rank ends within this, or raises
+SHARD_DEADLINE_S = 300  # the ranks of (b)-(f), together
+SHARD_AUC_TOLERANCE = 1e-4  # 4 ranks (and 2 x 2) vs the world of one, eval AUC
+SHARD_PATH = ("build_histogram_nodes", "build_histogram", "partition_rows", "predict_forest",
+              "bin_values", "bitpack_decode")
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _tree_digest(trees) -> int:
+    """CRC32 of a forest's bytes, every field: equal digests, equal trees."""
+    crc = 0
+    for t in trees:
+        for a in t:
+            crc = zlib.crc32(a.cpu().numpy().tobytes(), crc)
+    return crc
+
+
+def _split_share(a, b) -> float:
+    """The share of nodes whose (is_leaf, feature, split_bin) agree, over
+    forests of `TreeArrays` or of their six fields in that order."""
+    same = [
+        ((ta[4] == tb[4]) & (ta[0] == tb[0]) & (ta[1] == tb[1])).float().mean().item()
+        for ta, tb in zip(a, b, strict=True)
+    ]
+    return float(sum(same) / len(same))
+
+
+def sharded_world_of_one(dev, dm, booster, Xe, ye, params: dict) -> dict:
+    """Phase 12 (a): `fit_sharded` on a world of one (no process group) over
+    phase 2's matrix, 4 trees, bit for bit phase 2's first 4 trees (kernel 4
+    and kernel 1 give the same fixed-point sums). Returns what (b)-(f) are
+    held against, and its launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.booster import BoosterParams
+    from repro_torch.core.objectives import auc
+    from repro_torch.distributed import fit_sharded, make_mesh
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    mesh = make_mesh((1,), ("data",), device=dev)
+    p = BoosterParams(**dict(params, n_estimators=4))
+    reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    b = fit_sharded(mesh, dm, params=p, eval_set=(Xe, ye))
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    margin = b.predict_margin(Xe)
+    counts = launch_counts()
+    loop = b.eval_history[-1].elapsed_s
+    print(f"sharded (a) world of one: fit={secs:.3f} s per_tree={loop / 4:.4f} s "
+          f"eval_auc={b.eval_history[-1].value:.6f} h2d={b.stats.host_to_device_bytes} B "
+          f"launches {json.dumps(counts)}")
+    if not _same_trees(b.trees, booster.trees[:4]):
+        raise SystemExit("sharded (a): a world of one grew other trees than phase 2's first 4")
+    print("sharded (a): 4 trees == phase 2's first 4 trees (every field, bitwise)")
+    if not (np.all(np.isfinite(margin)) and abs(auc(ye, margin) - b.eval_history[-1].value) < 1e-6):
+        raise SystemExit("sharded (a): predict_margin disagrees with the fit's eval margins")
+    return dict(trees=[[a.cpu() for a in t] for t in b.trees], margin=margin,
+                aucs=[r.value for r in b.eval_history], counts=counts)
+
+
+def sharded_phase(seed: int, dev, cache: str, params: dict, Xe, ye, one: dict,
+                  stream_tree, stream_auc1: float, stream_h2d_tree: float,
+                  f_rows: int = 200_000) -> dict:
+    """Phase 12 (b)-(f): ``SHARD_WORLD`` rank processes on the card, gloo
+    (see the module docstring); the ranks run `shard_rank_main`. Returns the
+    launch counts of every rank, summed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.dmatrix import IterDMatrix
+    from repro_torch.data.synthetic import make_classification
+
+    t_phase = time.perf_counter()
+    total: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as root:
+        d = Path(root)
+        np.save(d / "Xe.npy", Xe)
+        np.save(d / "ye.npy", ye)
+        # (f): phase 11 (b)'s rows at max_bin=32, written once as a raw store
+        Xf, yf = make_classification(f_rows, PAPER.num_features, missing_rate=0.05,
+                                     seed=seed + 11)
+        Xef, yef = make_classification(f_rows // 10, PAPER.num_features, missing_rate=0.05,
+                                       seed=seed + 11, batch=1)
+        step = f_rows // 4
+        IterDMatrix([(Xf[i : i + step], yf[i : i + step]) for i in range(0, len(Xf), step)],
+                    max_bin=32, cache_dir=str(d / "f"), page_bytes=PAGE_BYTES, device=dev)
+        np.save(d / "Xef.npy", Xef)
+        np.save(d / "yef.npy", yef)
+        del Xf, yf
+        (d / "meta.json").write_text(json.dumps({
+            "cache": cache, "cache_f": str(d / "f"), "params": params,
+            "device": str(dev), "seed": seed,
+        }))
+        print(f"sharded: {SHARD_WORLD} ranks on one card over gloo (NCCL refuses two ranks "
+              f"on one device); set-up {time.perf_counter() - t_phase:.1f} s")
+        t0 = time.perf_counter()
+        logs = [open(d / f"rank{r}.log", "w") for r in range(SHARD_WORLD)]
+        procs = [
+            subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--shard-rank", str(r),
+                 "--shard-dir", root],
+                stdout=logs[r], stderr=subprocess.STDOUT,
+            )
+            for r in range(SHARD_WORLD)
+        ]
+        deadline = time.monotonic() + SHARD_DEADLINE_S
+        try:
+            for proc in procs:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            for log in logs:
+                log.close()
+        ranks_s = time.perf_counter() - t0
+        for r in range(SHARD_WORLD):
+            for line in (d / f"rank{r}.log").read_text().splitlines()[-40:]:
+                print(f"  [rank {r}] {line}")
+        codes = [proc.returncode for proc in procs]
+        if any(codes):
+            raise SystemExit(f"sharded: rank exit codes {codes} after {ranks_s:.1f} s")
+        reports = [json.loads((d / f"rank{r}.json").read_text()) for r in range(SHARD_WORLD)]
+        res = np.load(d / "rank0.npz")
+        for rep in reports:
+            _add_counts(total, rep["launches"])
+
+    def forest(prefix: str) -> list:
+        n = int(res[f"{prefix}_n"])
+        return [[torch.from_numpy(res[f"{prefix}_{i}_{k}"]) for k in range(6)] for i in range(n)]
+
+    for key in reports[0]["digests"]:
+        if len({rep["digests"][key] for rep in reports}) != 1:
+            raise SystemExit(f"sharded: the ranks returned different trees in {key}")
+    print("sharded: every rank returned the same trees in every run")
+    # (b) four ranks, data-parallel: repeatable bit for bit, AUC beside (a)
+    rep = reports[0]
+    if rep["digests"]["b1"] != rep["digests"]["b2"]:
+        raise SystemExit("sharded (b): two runs of 4 ranks grew different trees")
+    b_auc = rep["aucs"]["b1"]
+    a_trees = [[torch.as_tensor(a) for a in t] for t in one["trees"]]
+    share = _split_share(forest("b1"), a_trees)
+    margin_diff = float(np.abs(res["b1_margin"] - one["margin"]).max())
+    print(f"sharded (b) 4 ranks: two runs bitwise equal; eval_auc={b_auc[-1]:.6f} against "
+          f"(a) {one['aucs'][-1]:.6f} (|diff| {abs(b_auc[-1] - one['aucs'][-1]):.2e}); "
+          f"split nodes equal to (a)'s: {share:.4f}; largest eval margin difference "
+          f"{margin_diff:.3e}")
+    if abs(b_auc[-1] - one["aucs"][-1]) > SHARD_AUC_TOLERANCE:
+        raise SystemExit(f"sharded (b): eval AUC {b_auc[-1]} vs (a) {one['aucs'][-1]}")
+    # (c) 2 x 2 data x feature
+    c_auc = rep["aucs"]["c"][-1]
+    print(f"sharded (c) 2 x 2: eval_auc={c_auc:.6f} against (a) after 2 trees "
+          f"{one['aucs'][1]:.6f}; split nodes equal to (a)'s: "
+          f"{_split_share(forest('c'), a_trees[:2]):.4f}")
+    if abs(c_auc - one["aucs"][1]) > SHARD_AUC_TOLERANCE:
+        raise SystemExit(f"sharded (c): eval AUC {c_auc} vs (a) {one['aucs'][1]}")
+    # (d) the paged build against phase 6's streaming tree
+    d_auc = rep["aucs"]["d"][-1]
+    d_share = _split_share(forest("d"), [[a.cpu() for a in stream_tree]])
+    h2d = [r["h2d"]["d"] for r in reports]
+    ratio = max(h2d) / stream_h2d_tree
+    print(f"sharded (d) paged, 4 ranks: eval_auc after 1 tree={d_auc:.6f} against phase 6's "
+          f"{stream_auc1:.6f}; split nodes equal to phase 6's tree 0: {d_share:.4f}; h2d a "
+          f"tree per rank {h2d} B against {stream_h2d_tree:.0f} B single-process "
+          f"({ratio:.4f} of it)")
+    if abs(d_auc - stream_auc1) > AUC_TOLERANCE:
+        raise SystemExit(f"sharded (d): eval AUC {d_auc} vs phase 6's first tree {stream_auc1}")
+    if not 0.2 <= ratio <= 0.3:
+        raise SystemExit(f"sharded (d): a rank staged {ratio:.4f} of the single process's bytes")
+    # (e) lossguide, unbudgeted and under 16 node histograms
+    if rep["digests"]["e"] != rep["digests"]["e_budget"]:
+        raise SystemExit("sharded (e): the budgeted lossguide tree differs from the unbudgeted")
+    print(f"sharded (e) lossguide 64 leaves: budgeted tree == unbudgeted (bitwise); spills "
+          f"{rep['spills']['e_budget']}, fetches {rep['fetches']['e_budget']}; eval_auc="
+          f"{rep['aucs']['e'][-1]:.6f}")
+    # (f) compression
+    if rep["digests"]["f_raw"] != rep["digests"]["f_bitpack"]:
+        raise SystemExit("sharded (f): bitpack trees differ from raw")
+    f16 = rep["aucs"]["f_f16"][-1] - rep["aucs"]["f_raw"][-1]
+    print(f"sharded (f): bitpack trees == raw (bitwise), wire/logical "
+          f"{rep['wire_ratio']['f_bitpack']:.6f}; f16 eval_auc - raw {f16:+.6f}")
+    if abs(f16) > GRAD_AUC_TOLERANCE:
+        raise SystemExit(f"sharded (f): f16 eval AUC off raw by {f16}")
+    print(f"sharded path launches (ranks summed): {json.dumps(total)}")
+    print(f"sharded (b)-(f): {time.perf_counter() - t_phase:.3f} s in all (ranks {ranks_s:.1f} s)")
+    return total
+
+
+def shard_rank_main(args) -> int:
+    """One rank of phase 12 (b)-(f): joins the gloo group through a file
+    store in ``--shard-dir``, runs every case on the same inputs as the
+    others, and writes ``rank<r>.json`` (and, rank 0, ``rank0.npz``)."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    _load_paper_config()
+    from repro_torch.core.booster import BoosterParams, bin_valid_from_cuts
+    from repro_torch.core.ellpack import Binner, EllpackPage
+    from repro_torch.core.objectives import auc, get_objective
+    from repro_torch.core.tree import predict_tree_bins
+    from repro_torch.data.dmatrix import PagedDMatrix
+    from repro_torch.data.pages import TransferStats
+    from repro_torch.distributed import (
+        DistConfig,
+        fit_sharded,
+        grow_tree_distributed_paged,
+        make_mesh,
+        sharded_page_put,
+    )
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.pipeline import PageStream
+
+    d = Path(args.shard_dir)
+    rank = args.shard_rank
+    meta = json.loads((d / "meta.json").read_text())
+    dist.init_process_group(
+        "gloo", init_method=f"file://{d}/store", rank=rank, world_size=SHARD_WORLD,
+        timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S),
+    )
+    dev = torch.device(meta["device"])
+    mesh = make_mesh((SHARD_WORLD,), ("data",), device=dev)
+    mesh2 = make_mesh((2, SHARD_WORLD // 2), ("data", "model"), device=dev)
+    Xe, ye = np.load(d / "Xe.npy"), np.load(d / "ye.npy")
+    params = meta["params"]
+    rep: dict = {"rank": rank, "launches": {}, "digests": {}, "aucs": {}, "h2d": {},
+                 "spills": {}, "fetches": {}, "wire_ratio": {}}
+    arrays: dict = {}
+
+    def keep(name: str, trees) -> None:
+        rep["digests"][name] = _tree_digest(trees)
+        arrays[f"{name}_n"] = len(trees)
+        for i, t in enumerate(trees):
+            for k, a in enumerate(t):
+                arrays[f"{name}_{i}_{k}"] = a.cpu().numpy()
+
+    def timed(name: str, n_trees: int, fn):
+        for m in (mesh, mesh2):
+            m.stats.reset()
+        reset_launch_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        _add_counts(rep["launches"], counts)
+        ar_s = mesh.stats.all_reduce_seconds + mesh2.stats.all_reduce_seconds
+        ar_b = mesh.stats.all_reduce_bytes + mesh2.stats.all_reduce_bytes
+        ag_s = mesh.stats.all_gather_seconds + mesh2.stats.all_gather_seconds
+        loop = getattr(out, "eval_history", None)
+        per_tree = loop[-1].elapsed_s / n_trees if loop else secs / n_trees
+        calls = mesh.stats.all_reduce_calls + mesh2.stats.all_reduce_calls
+        print(f"{name}: {secs:.3f} s, {per_tree:.4f} s a tree; all-reduce {ar_s / n_trees:.4f} s, "
+              f"{ar_b // n_trees} B, {calls // n_trees} calls a tree; all-gather "
+              f"{ag_s / n_trees:.4f} s a tree", flush=True)
+        return out
+
+    pdm = PagedDMatrix(meta["cache"])
+    p4 = BoosterParams(**dict(params, n_estimators=4))
+    # (b) data-parallel, twice; a predict through kernel 3
+    b1 = timed("b1", 4, lambda: fit_sharded(mesh, pdm, params=p4, eval_set=(Xe, ye)))
+    margin = timed("b_predict", 1, lambda: b1.predict_margin(Xe))
+    b2 = timed("b2", 4, lambda: fit_sharded(mesh, pdm, params=p4, eval_set=(Xe, ye)))
+    keep("b1", b1.trees)
+    keep("b2", b2.trees)
+    arrays["b1_margin"] = margin
+    rep["aucs"]["b1"] = [r.value for r in b1.eval_history]
+    del b1, b2
+    # (c) 2 x 2 data x feature, 2 trees
+    c = timed("c", 2, lambda: fit_sharded(mesh2, pdm, params=BoosterParams(**dict(
+        params, n_estimators=2)), cfg=DistConfig(feature_axis="model"), eval_set=(Xe, ye)))
+    keep("c", c.trees)
+    rep["aucs"]["c"] = [r.value for r in c.eval_history]
+    del c
+    # (d) the paged build over phase 6's pages, one tree, each rank its rows
+    tp = p4.tree_params()
+    labels = pdm.require_labels()
+    obj = get_objective(params["objective"])
+    base = obj.base_margin(labels)
+    labels_t = torch.from_numpy(labels).to(dev)
+    g, h = obj.grad_hess(torch.full_like(labels_t, base), labels_t)
+    ps = pdm.page_set()
+    put = sharded_page_put(mesh, DistConfig())
+    stats = TransferStats()
+
+    def make_stream(indices=None):
+        return PageStream.from_store(
+            ps.store, lambda i, a: EllpackPage(bins=a["bins"], row_offset=ps.row_offsets[i]),
+            indices=indices, to_array=put, device=dev, stats=stats,
+        )
+
+    bv = bin_valid_from_cuts(pdm.cuts, pdm.n_bins, dev)
+    tree, _ = timed("d", 1, lambda: grow_tree_distributed_paged(
+        mesh, make_stream, ps.page_extents, g, h, pdm.n_bins, bv, tp, DistConfig(),
+        pdm.cuts.values, pdm.cuts.ptrs))
+    keep("d", [tree])
+    rep["h2d"]["d"] = stats.host_to_device_bytes
+    eval_bins = Binner(pdm.cuts, dev).to_device(Xe)
+    em = base + params["learning_rate"] * predict_tree_bins(tree, eval_bins, tp.max_depth)
+    rep["aucs"]["d"] = [auc(ye, em.cpu().numpy())]
+    del g, h, eval_bins
+    # (e) lossguide, 64 leaves, unbudgeted and under 16 node histograms
+    p1 = BoosterParams(**dict(params, n_estimators=1))
+    node_bytes = pdm.num_features * pdm.n_bins * 2 * 4
+    for name, cfg in (("e", DistConfig(grow_policy="lossguide", max_leaves=64)),
+                      ("e_budget", DistConfig(grow_policy="lossguide", max_leaves=64,
+                                              hist_budget_bytes=16 * node_bytes))):
+        e = timed(name, 1, lambda cfg=cfg: fit_sharded(mesh, pdm, params=p1, cfg=cfg,
+                                                       eval_set=(Xe, ye)))
+        keep(name, e.trees)
+        rep["aucs"][name] = [r.value for r in e.eval_history]
+        rep["spills"][name], rep["fetches"][name] = e.stats.hist_spills, e.stats.hist_fetches
+    del pdm
+    # (f) compression on phase 11 (b)'s rows at max_bin=32
+    pdf = PagedDMatrix(meta["cache_f"])
+    Xef, yef = np.load(d / "Xef.npy"), np.load(d / "yef.npy")
+    p2 = BoosterParams(**dict(params, n_estimators=2, max_bin=32))
+    for name, cfg in (("f_raw", DistConfig()), ("f_bitpack", DistConfig(page_codec="bitpack")),
+                      ("f_f16", DistConfig(grad_transport="f16"))):
+        f = timed(name, 2, lambda cfg=cfg: fit_sharded(mesh, pdf, params=p2, cfg=cfg,
+                                                       eval_set=(Xef, yef)))
+        keep(name, f.trees)
+        rep["aucs"][name] = [r.value for r in f.eval_history]
+        rep["wire_ratio"][name] = f.stats.wire_ratio
+    print(f"launches: {json.dumps(rep['launches'])}")
+    (d / f"rank{rank}.json").write_text(json.dumps(rep))
+    if rank == 0:
+        np.savez(d / "rank0.npz", **arrays)
+    dist.destroy_process_group()
+    return 0
+
+
+PAPER = None  # the paper configuration (repro_torch.configs.xgb_paper.CONFIG)
+
+
+def _load_paper_config() -> None:
+    global PAPER
+    from repro_torch.configs.xgb_paper import CONFIG
+
+    PAPER = CONFIG
 
 
 if __name__ == "__main__":

@@ -239,6 +239,60 @@ class GradientBooster:
             grad_transport=self.policy.grad_transport,
         )
 
+    # ---------------------------------------------------------- sklearn compat
+    def get_params(self, deep: bool = True) -> dict:
+        """Flat `BoosterParams` fields + ``policy``, sklearn-style.
+
+        ``deep=True`` also flattens the nested dataclasses with the double
+        underscore (``sampling__f``, ``policy__mode``); ``deep=False``
+        returns exactly the keyword arguments that rebuild this estimator."""
+        out = {f.name: getattr(self.params, f.name) for f in dataclasses.fields(BoosterParams)}
+        out["policy"] = self.policy
+        if deep:
+            for fld in dataclasses.fields(SamplingConfig):
+                out[f"sampling__{fld.name}"] = getattr(self.params.sampling, fld.name)
+            for fld in dataclasses.fields(ExecutionPolicy):
+                out[f"policy__{fld.name}"] = getattr(self.policy, fld.name)
+        return out
+
+    def set_params(self, **updates) -> "GradientBooster":
+        """sklearn-style update; takes the keys `get_params` gives (flat
+        fields, ``policy``, ``sampling__*`` and ``policy__*``). The sampling
+        draws follow the new ``seed``: each round's generator is seeded from
+        it."""
+        field_names = {f.name for f in dataclasses.fields(BoosterParams)}
+        flat: dict = {}
+        nested: dict[str, dict] = {"sampling": {}, "policy": {}}
+        for key, val in updates.items():
+            if key == "policy":
+                self.policy = val
+            elif "__" in key:
+                head, _, tail = key.partition("__")
+                if head not in nested:
+                    raise ValueError(
+                        f"invalid nested parameter {key!r}; nestable prefixes are "
+                        "'sampling__' and 'policy__'"
+                    )
+                nested[head][tail] = val
+            elif key in field_names:
+                flat[key] = val
+            else:
+                raise ValueError(
+                    f"invalid parameter {key!r} for GradientBooster; valid "
+                    f"parameters are {sorted(field_names | {'policy'})}"
+                )
+        if nested["sampling"]:
+            flat["sampling"] = dataclasses.replace(
+                flat.get("sampling", self.params.sampling), **nested["sampling"]
+            )
+        if flat:
+            self.params = dataclasses.replace(self.params, **flat)
+        if nested["policy"]:
+            self.policy = dataclasses.replace(self.policy, **nested["policy"])
+        self.objective = obj_lib.get_objective(self.params.objective)
+        self.hist_cache = self._make_hist_store()
+        return self
+
     # ------------------------------------------------------------------ fit
     def fit(
         self,
@@ -818,3 +872,11 @@ class GradientBooster:
                 margins[sl] += lr * pred
         self.margins_ = torch.from_numpy(margins).to(self.device)
         return self
+
+
+def train_in_core(
+    X: np.ndarray, y: np.ndarray, params: BoosterParams | None = None, **kw
+) -> GradientBooster:
+    """Fit in core on raw arrays (``device=`` and any `BoosterParams` field
+    as keywords)."""
+    return GradientBooster(params, policy=ExecutionPolicy(mode="in_core"), **kw).fit(X, y)

@@ -473,3 +473,33 @@ def predict_tree_bins(tree: TreeArrays, bins: Tensor, max_depth: int) -> Tensor:
         bins, tree.feature, tree.split_bin, tree.default_left, tree.is_leaf,
         tree.leaf_value, max_depth,
     )
+
+
+def predict_tree_raw(tree: TreeArrays, X: Tensor, max_depth: int) -> Tensor:
+    """One tree over raw (unquantised) rows, by the stored thresholds: go
+    left iff ``x <= split_value``, a NaN by ``default_left``."""
+    X = torch.as_tensor(X)
+    pos = torch.zeros(X.shape[0], dtype=torch.int64, device=X.device)
+    for _ in range(max_depth):
+        x = X.gather(1, tree.feature[pos].to(torch.int64)[:, None])[:, 0]
+        go_left = torch.where(torch.isnan(x), tree.default_left[pos], x <= tree.split_value[pos])
+        child = 2 * pos + 1 + (~go_left).to(torch.int64)
+        pos = torch.where(tree.is_leaf[pos], pos, child)
+    return tree.leaf_value[pos]
+
+
+def stack_trees(trees: list[TreeArrays]) -> TreeArrays:
+    """A forest as one TreeArrays with a leading tree axis."""
+    return TreeArrays(*[torch.stack(x) for x in zip(*trees)])
+
+
+def predict_forest_raw(
+    forest: TreeArrays, X: Tensor, max_depth: int, learning_rate: float, base_margin: float
+) -> Tensor:
+    """``base + lr * sum(per_tree)`` (eq. 1) over a stacked forest, a loop
+    over its trees."""
+    per_tree = torch.stack([
+        predict_tree_raw(TreeArrays(*(f[t] for f in forest)), X, max_depth)
+        for t in range(forest.feature.shape[0])
+    ])
+    return base_margin + learning_rate * per_tree.sum(dim=0)
