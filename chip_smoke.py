@@ -149,13 +149,19 @@ Phases, each of which fails the run on error:
 
   11. compression (`repro_torch.compress`): (a) (after phase 10 (f), on
      phase 6's pages) the bitpack decode kernel bit for bit against its
-     plain version at bits 1-8, with and without missing values, at row
-     widths that do not fill a byte and with an all-missing row, then on
-     phase 6's first page (67,108 x 500, 8 bits), timed beside its bound (the
-     packed read plus the uint8 write) and the plain version: the
-     ``bitpack_decode`` row of the kernels line; (b) (after phase 8) 200,000
-     fresh rows x 500 with 5% missing at ``max_bin=32`` (6-bit symbols) in 32
-     MiB pages, written raw, ``bitpack`` and ``delta-rle``; 2 depth-8 trees
+     plain version, twice a case with one launch a call, at bits 1-8, with
+     and without missing values, at row widths that do not fill a byte and
+     with an all-missing row, at its tile edges (R - 1, R, R + 1 and 4R + 3
+     rows at 500 and 13 symbols, R = ``kernels.bitpack.tile_rows``), from
+     views 1, 3, 8 and 15 bytes into a buffer, and at 8 bits with a missing
+     symbol of 254; then on phase 6's first page (67,108 x 500, 8 bits),
+     timed beside its bound (the packed read plus the uint8 write), the
+     plain version and one device copy of the decoded bytes (``copy_ms``):
+     the ``bitpack_decode`` row of the kernels line; (b) (after phase 8)
+     200,000 fresh rows x 500 with 5% missing at ``max_bin=32`` (6-bit
+     symbols) in 32 MiB pages, written raw, ``bitpack`` and ``delta-rle``,
+     the decode kernel timed as in (a) on the first page (67,108 x 500) and
+     on the whole matrix (the in-core fit's one decode); 2 depth-8 trees
      out of core on each, trees and margins bit for bit the raw run's, the
      bitpack run's wire/logical bytes at most 0.76 and one decode launch a
      staged page; then in core on the same rows raw and with
@@ -2542,43 +2548,105 @@ def _packed_grid_page(rng, rows: int, cols: int, bits: int, missing: bool):
     return page
 
 
-def bitpack_kernel_checks(seed: int, dev, cache: str) -> dict:
-    """Phase 11 (a): the bitpack decode kernel against its plain version,
-    bit for bit, on a grid of widths and on phase 6's first page, which it
-    times. Returns the kernels line's row (launches filled in by main);
-    restores the kernel's launch count."""
+def _bitpack_check(dev, page, payload, meta, what: str, view_at: int = 0):
+    """Decode ``payload`` twice with the kernel (``view_at`` > 0: from a view
+    that many bytes into a larger buffer, so not 16-byte aligned) and hold
+    both against the plain version and the page, bit for bit, with one
+    launch a call."""
     import numpy as np
     import torch
+
+    from repro_torch.kernels import bitpack as k_bitpack
+    from repro_torch.kernels import ref
+
+    rows, cols = page.shape
+    bits, miss = meta["bits"], meta["missing"]
+    p = torch.from_numpy(payload).to(dev)
+    if view_at:
+        buf = torch.zeros(payload.size + view_at + 16, dtype=torch.uint8, device=dev)
+        p = buf[view_at : view_at + payload.size].view(payload.shape).copy_(p)
+    before = k_bitpack.launches
+    got = k_bitpack.bitpack_decode(p, cols, bits, miss)
+    again = k_bitpack.bitpack_decode(p, cols, bits, miss)
+    want = ref.bitpack_decode(p, cols, bits, miss)
+    torch.cuda.synchronize()
+    if k_bitpack.launches != before + 2:
+        raise SystemExit(f"bitpack decode: {k_bitpack.launches - before} launches for 2 calls "
+                         f"({what})")
+    if not (torch.equal(got, want) and torch.equal(got, again)
+            and np.array_equal(got.cpu().numpy(), page)):
+        raise SystemExit(f"bitpack decode kernel disagrees ({what}, bits={bits}, missing "
+                         f"symbol {miss}, shape=({rows}, {cols}))")
+
+
+def bitpack_kernel_checks(seed: int, dev, cache: str) -> dict:
+    """Phase 11 (a): the bitpack decode kernel against its plain version,
+    bit for bit, on a grid of widths, at its tile edges, from views that are
+    not 16-byte aligned, and on phase 6's first page, which it times.
+    Returns the kernels line's row (launches filled in by main); restores
+    the kernel's launch count."""
+    import numpy as np
 
     from repro_torch.compress import BitpackCodec
     from repro_torch.data.pages import PageStore
     from repro_torch.kernels import bitpack as k_bitpack
-    from repro_torch.kernels import ref
 
     saved = k_bitpack.launches
     codec = BitpackCodec()
     rng = np.random.default_rng(seed + 111)
     n_cases = 0
+    edges = {cols: k_bitpack.tile_rows(cols) for cols in (500, 13)}
+    shapes = [(4096, 500), (1000, 13), (7, 1), (1, 4099)] + [
+        (rows, cols) for cols, r in edges.items() for rows in (r - 1, r, r + 1, 4 * r + 3)
+    ]
     for bits in range(1, 9):
         for missing in (False, True):
-            for rows, cols in ((4096, 500), (1000, 13), (7, 1), (1, 4099)):
+            for rows, cols in shapes:
                 page = _packed_grid_page(rng, rows, cols, bits, missing)
                 payload, meta = codec.encode(page)
                 if meta["bits"] != bits:
                     raise SystemExit(f"grid page packs at {meta['bits']} bits, not {bits}")
-                p = torch.from_numpy(payload).to(dev)
-                got = k_bitpack.bitpack_decode(p, cols, bits, meta["missing"])
-                want = ref.bitpack_decode(p, cols, bits, meta["missing"])
-                if not (torch.equal(got, want) and np.array_equal(got.cpu().numpy(), page)):
-                    raise SystemExit(f"bitpack decode kernel disagrees at bits={bits} "
-                                     f"missing={missing} shape=({rows}, {cols})")
+                _bitpack_check(dev, page, payload, meta, "grid")
                 n_cases += 1
-    print(f"bitpack (a): decode kernel == plain version == the page (bitwise) in {n_cases} "
-          f"cases: bits 1-8, with and without missing values (an all-missing row), "
-          f"(rows, symbols) in (4096, 500), (1000, 13), (7, 1), (1, 4099)")
+    for view_at in (1, 3, 8, 15):
+        for bits, rows, cols in ((6, 4 * edges[500] + 3, 500), (3, edges[13] + 1, 13)):
+            page = _packed_grid_page(rng, rows, cols, bits, True)
+            payload, meta = codec.encode(page)
+            _bitpack_check(dev, page, payload, meta, f"a view at byte {view_at}", view_at)
+            n_cases += 1
+    # 8 bits whose missing symbol is not 255: the copy path still remaps
+    page = _packed_grid_page(rng, 4 * edges[500] + 3, 500, 8, True)
+    page[page == 254] = 253
+    payload, meta = codec.encode(page)
+    if (meta["bits"], meta["missing"]) != (8, 254):
+        raise SystemExit(f"the remap page packs as {meta}")
+    _bitpack_check(dev, page, payload, meta, "8 bits, missing symbol 254")
+    n_cases += 1
+    print(f"bitpack (a): decode kernel == plain version == the page (bitwise), twice, one "
+          f"launch a call, in {n_cases} cases: bits 1-8, with and without missing values (an "
+          f"all-missing row), (rows, symbols) in {shapes} (tile rows {edges}), views at bytes "
+          f"1, 3, 8 and 15 of a buffer, 8 bits with missing symbol 254")
 
-    bins = PageStore(cache).read_page(0)["bins"]
-    payload, meta = codec.encode(bins)
+    k_bitpack.launches = saved
+    return _bitpack_timed_row(dev, PageStore(cache).read_page(0)["bins"], "phase 6's page 0")
+
+
+def _bitpack_timed_row(dev, bins, what: str) -> dict:
+    """Encode ``bins`` with the bitpack codec, hold the kernel's decode
+    against the plain version and ``bins`` bit for bit, and time it beside
+    its bound, the plain version and one device-to-device copy of the
+    decoded bytes (``copy_ms``, the floor of a pass that reads and writes a
+    page). Returns the kernels line's row (launches not filled in); leaves
+    the kernel's launch count as it found it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.compress import BitpackCodec
+    from repro_torch.kernels import bitpack as k_bitpack
+    from repro_torch.kernels import ref
+
+    saved = k_bitpack.launches
+    payload, meta = BitpackCodec().encode(bins)
     rows, cols = bins.shape
     bits, miss = meta["bits"], meta["missing"]
     p = torch.from_numpy(payload).to(dev)
@@ -2586,7 +2654,8 @@ def bitpack_kernel_checks(seed: int, dev, cache: str) -> dict:
     want = ref.bitpack_decode(p, cols, bits, miss)
     torch.cuda.synchronize()
     if not (torch.equal(got, want) and np.array_equal(got.cpu().numpy(), bins)):
-        raise SystemExit("bitpack decode kernel disagrees on phase 6's first page")
+        raise SystemExit(f"bitpack decode kernel disagrees on {what}")
+    dst = torch.empty_like(got)
     n_bytes = payload.nbytes + bins.nbytes  # packed read once, uint8 written once
     bound_ms, bound_by = _bound(n_bytes, 4 * bins.size)  # shift, or, shift, mask a symbol
     row = dict(
@@ -2601,14 +2670,17 @@ def bitpack_kernel_checks(seed: int, dev, cache: str) -> dict:
         bound_ms=bound_ms, bound_by=bound_by,
         # no one PyTorch call unpacks bit fields narrower than a byte
         library_ms=None,
+        copy_ms=_time_ms(lambda: dst.copy_(got), 20, queued=True),
     )
-    k_bitpack.launches = saved
-    print(f"kernel bitpack_decode ({rows} x {cols} at {bits} bits, missing symbol {miss}): "
-          f"== plain version == the page (bitwise) True ms={row['ms']:.4f} "
+    print(f"kernel bitpack_decode ({what}: {rows} x {cols} at {bits} bits, missing symbol "
+          f"{miss}): == plain version == the page (bitwise) True ms={row['ms']:.4f} "
           f"device_ms={row['device_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
           f"bound_ms={bound_ms:.4f} ({bound_by}: {payload.nbytes} B packed read + "
           f"{bins.nbytes} B uint8 write = {n_bytes} B at {HBM_BYTES_PER_S / 1e12} TB/s) "
-          f"library_ms=None (no one PyTorch call unpacks sub-byte fields)")
+          f"copy_ms={row['copy_ms']:.4f} (one device copy of the {bins.nbytes} decoded B) "
+          f"share of the bound {bound_ms / row['device_ms']:.2f} library_ms=None (no one "
+          f"PyTorch call unpacks sub-byte fields)")
+    k_bitpack.launches = saved
     return row
 
 
@@ -2731,7 +2803,7 @@ def compression_stream_phase(seed: int, dev, params: dict, n_rows: int = 200_000
     from repro_torch.core.booster import BoosterParams, GradientBooster
     from repro_torch.core.policy import ExecutionPolicy
     from repro_torch.data.dmatrix import IterDMatrix, PagedDMatrix
-    from repro_torch.data.pages import _zstd
+    from repro_torch.data.pages import PageStore, _zstd
     from repro_torch.data.synthetic import make_classification
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
@@ -2756,6 +2828,13 @@ def compression_stream_phase(seed: int, dev, params: dict, n_rows: int = 200_000
             print(f"codecs (b) {codec} store: {dm.n_pages} pages, "
                   f"{dm.stats.disk_write_bytes} B on disk, written in "
                   f"{time.perf_counter() - t0:.3f} s")
+        # the decode kernel timed at the shapes this phase decodes: a staged
+        # page, and the whole matrix as the in-core fit stages it
+        store = PageStore(f"{root}/raw")
+        pages = [store.read_page(i)["bins"] for i in range(store.n_pages)]
+        _bitpack_timed_row(dev, pages[0], "a staged page of (b)")
+        _bitpack_timed_row(dev, np.concatenate(pages), "(b)'s in-core matrix")
+        del pages
         for codec in ("raw", "bitpack", "delta-rle"):
             pdm = PagedDMatrix(f"{root}/{codec}")
             reset_launch_counts()

@@ -51,7 +51,7 @@ SIGNATURES = {
     "forest": ("forest_launch", [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                                  _P, _P]),
     "ellpack_bin": ("ellpack_bin_launch", [_P, _I, _L, _I, _P, _I, _P, _P, _P]),
-    "bitpack": ("bitpack_decode_launch", [_P, _L, _L, _L, _I, _I, _P, _I, _P]),
+    "bitpack": ("bitpack_decode_launch", [_P, _L, _L, _L, _I, _I, _L, _P, _P]),
 }
 
 _lock = threading.Lock()

@@ -44,4 +44,7 @@ def require_cuda(t: torch.Tensor, what: str) -> None:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of ``device``'s current stream (without building a
+    `torch.cuda.Stream` object, which costs a few microseconds a launch)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

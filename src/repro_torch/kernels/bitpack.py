@@ -5,6 +5,12 @@ uint8 bins on the card. It replaces no Pallas kernel: the reference decodes
 with jnp ops (`repro.compress.codecs.BitpackCodec.device_decode`), whose
 bit-plane temporaries are 32 bytes a symbol at 8 bits. Integer-exact. Plain
 version: `repro_torch.kernels.ref.bitpack_decode`.
+
+The kernel stages whole tiles of `tile_rows` rows through shared memory;
+the rows after the last whole tile, and pages it cannot stage (a payload
+view that is not 16-byte aligned, fewer rows than a tile, a tile too large
+for shared memory), take its direct path in the same launch. `tile_rows`
+is here so that tests can aim at the tile edges.
 """
 from __future__ import annotations
 
@@ -14,6 +20,15 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._checks import require, require_cuda, stream_ptr
 
 launches = 0
+
+TILE_OUT_BYTES = 16384  # decoded bytes a staged tile aims at
+
+
+def tile_rows(row_syms: int) -> int:
+    """Rows of one staged tile at ``row_syms`` symbols a row: a multiple of
+    16 (so that a tile's packed and decoded bytes are each a multiple of 16
+    long at any width), about `TILE_OUT_BYTES` decoded."""
+    return max(16, TILE_OUT_BYTES // max(row_syms, 1) // 16 * 16)
 
 
 def bitpack_decode(
@@ -43,11 +58,10 @@ def bitpack_decode(
     out = torch.empty((rows, row_syms), dtype=torch.uint8, device=dev)
     if rows * row_syms == 0:
         return out
-    fn = _build.library("bitpack")
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    err = fn(
+    err = _build.library("bitpack")(
         payload.data_ptr(), rows, row_syms, row_bytes, bits,
-        -1 if missing is None else int(missing), out.data_ptr(), n_sms, stream_ptr(dev),
+        -1 if missing is None else int(missing), tile_rows(row_syms), out.data_ptr(),
+        stream_ptr(dev),
     )
     _build.check(err, "bitpack_decode")
     launches += 1

@@ -4,7 +4,8 @@ reference (`repro.compress`), on the CPU.
 Host codecs must give the reference's payload and meta byte for byte, and
 decode what the reference wrote; the plain bitpack decode (what a CPU tensor
 runs, and what the CUDA kernel is held against) equals the reference's
-``device_decode``; `ForestPageTransport` equals the reference's at odd and
+``device_decode`` and both packages' host decodes, at the CUDA kernel's
+tile edges and from a payload view that is not 16-byte aligned; `ForestPageTransport` equals the reference's at odd and
 even node counts and on its raw fallback; `GradQuantizer` is bitwise the
 reference's in every mode. A page cache written by either package under any
 codec (zstd framed too) reads in the other, and a stream over a bitpack
@@ -120,19 +121,51 @@ def test_decode_reads_the_reference_payloads(name):
         np.testing.assert_array_equal(got, page)
 
 
-@pytest.mark.parametrize("bits", range(1, 9))
-@pytest.mark.parametrize("missing", [False, True])
-def test_plain_bitpack_decode_is_the_reference_device_decode(bits, missing):
-    page = _page_at_bits(bits, missing)
-    payload, meta = jc.BitpackCodec().encode(page)
-    assert meta["bits"] == bits and (meta["missing"] is not None) == missing
-    want = np.asarray(jc.BitpackCodec().device_decode(payload, meta)).astype(np.uint8)
-    got = ref.bitpack_decode(torch.from_numpy(payload), page.shape[1], bits, meta["missing"])
+# the CUDA kernel's tile edges (`tests/test_torch_cuda.py` holds it there):
+# R - 1, R, R + 1 and 4R + 3 rows at 500 symbols a row and at 13
+BITPACK_EDGES = [
+    (rows, cols)
+    for cols in (500, 13)
+    for rows in (k_bitpack.tile_rows(cols) - 1, k_bitpack.tile_rows(cols),
+                 k_bitpack.tile_rows(cols) + 1, 4 * k_bitpack.tile_rows(cols) + 3)
+]
+
+
+def _check_plain_decode(page, payload, meta):
+    """The plain decode of ``payload`` (a CPU tensor) equals the reference's
+    jnp ``device_decode``, both packages' host decodes and the page."""
+    want = np.asarray(jc.BitpackCodec().device_decode(np.asarray(payload), meta)).astype(np.uint8)
+    got = ref.bitpack_decode(payload, page.shape[1], meta["bits"], meta["missing"])
     assert got.dtype == torch.uint8
     np.testing.assert_array_equal(got.numpy(), want)
-    np.testing.assert_array_equal(tc.BitpackCodec().decode(payload, meta), want)
-    dev = tc.BitpackCodec().device_decode(torch.from_numpy(payload), meta)
+    np.testing.assert_array_equal(tc.BitpackCodec().decode(payload.numpy(), meta), want)
+    np.testing.assert_array_equal(jc.BitpackCodec().decode(payload.numpy(), meta), want)
+    dev = tc.BitpackCodec().device_decode(payload, meta)
     np.testing.assert_array_equal(dev.numpy(), page)
+
+
+@pytest.mark.parametrize("bits", range(1, 9))
+@pytest.mark.parametrize("missing", [False, True])
+@pytest.mark.parametrize("rows,cols", [(37, 11)] + BITPACK_EDGES)
+def test_plain_bitpack_decode_is_the_reference_device_decode(bits, missing, rows, cols):
+    page = _page_at_bits(bits, missing, rows=rows, cols=cols)
+    payload, meta = jc.BitpackCodec().encode(page)
+    assert meta["bits"] == bits and (meta["missing"] is not None) == missing
+    _check_plain_decode(page, torch.from_numpy(payload), meta)
+
+
+@pytest.mark.parametrize("offset", [1, 3, 8, 15])
+@pytest.mark.parametrize("bits,rows,cols", [(6, 131, 500), (3, 1249, 13)])
+def test_plain_bitpack_decode_reads_a_view_into_a_buffer(offset, bits, rows, cols):
+    """A payload that is a view ``offset`` bytes into a larger buffer (what
+    the kernel cannot copy in bulk) decodes as the reference decodes it."""
+    page = _page_at_bits(bits, True, rows=rows, cols=cols, seed=offset)
+    payload, meta = jc.BitpackCodec().encode(page)
+    buf = torch.zeros(payload.size + offset + 16, dtype=torch.uint8)
+    view = buf[offset : offset + payload.size].view(payload.shape)
+    view.copy_(torch.from_numpy(payload))
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    _check_plain_decode(page, view, meta)
 
 
 def test_plain_bitpack_decode_bounds_its_chunks(monkeypatch):

@@ -43,6 +43,12 @@ a rank whose histogram kernel raises makes both ranks exit non-zero within
 the deadline. On four cards (skipped on fewer), 4 ranks one card each, over
 NCCL and over gloo, at 200,000 x 500 rows: every rank's forest equal, eval
 AUC within 1e-4 of a world of one's and >= 95% of its split nodes.
+
+Compression: the bitpack decode kernel equals its plain version and the page
+bit for bit at bits 1-8, at the edges of its row tiles, from payload views
+that are not 16-byte aligned, at 8 bits with a missing symbol below 255 and
+at the page shapes the paths decode; two decodes are equal and every call is
+one launch, whichever path inside the kernel it takes.
 """
 import numpy as np
 import pytest
@@ -61,6 +67,7 @@ from repro_torch.data.dmatrix import IterDMatrix
 from repro_torch.data.synthetic import make_classification
 from repro_torch.core.quantile import HistogramCuts, sketch_dense
 from repro_torch.kernels import ellpack_bin as k_bin
+from repro_torch.kernels.bitpack import tile_rows
 from repro_torch.kernels import forest as k_forest
 from repro_torch.kernels import histogram as k_hist
 from repro_torch.kernels import partition as k_part
@@ -1076,34 +1083,102 @@ def _packed_page(rng, rows, cols, bits, missing):
     return page, payload, meta
 
 
-@pytest.mark.parametrize("bits", range(1, 9))
-@pytest.mark.parametrize("missing", [False, True])
-@pytest.mark.parametrize("rows,cols", [(1000, 500), (37, 11), (5, 1), (1, 4099)])
-def test_bitpack_decode_kernel_matches_plain(dev, bits, missing, rows, cols):
-    """The decode kernel equals its plain version and the page bit for bit
-    at every width, rows that do not fill a byte among them."""
+# the kernel's tile edges: R - 1, R and R + 1 rows, and four tiles and a
+# ragged one, at 500 symbols a row (R = 32) and 13 (R = 1,248)
+BITPACK_EDGES = [
+    (rows, cols)
+    for cols in (500, 13)
+    for rows in (tile_rows(cols) - 1, tile_rows(cols), tile_rows(cols) + 1, 4 * tile_rows(cols) + 3)
+]
+
+
+def _decode_once(dev, payload, cols, bits, missing):
+    """The kernel's decode of ``payload`` (a CUDA tensor), checking that
+    the call launched it exactly once."""
     from repro_torch.kernels import bitpack as k_bitpack
 
-    rng = np.random.default_rng(bits * 100 + rows + cols)
-    page, payload, meta = _packed_page(rng, rows, cols, bits, missing)
     before = k_bitpack.launches
-    got = k_bitpack.bitpack_decode(torch.from_numpy(payload).to(dev), cols, bits,
-                                   meta["missing"])
+    got = k_bitpack.bitpack_decode(payload, cols, bits, missing)
     torch.cuda.synchronize()
     assert k_bitpack.launches == before + 1
+    assert got.dtype == torch.uint8 and got.shape == (payload.shape[0], cols)
+    return got
+
+
+@pytest.mark.parametrize("bits", range(1, 9))
+@pytest.mark.parametrize("missing", [False, True])
+@pytest.mark.parametrize("rows,cols", [(1000, 500), (37, 11), (5, 1), (1, 4099)] + BITPACK_EDGES)
+def test_bitpack_decode_kernel_matches_plain(dev, bits, missing, rows, cols):
+    """The decode kernel equals its plain version and the page bit for bit
+    at every width, rows that do not fill a byte among them, and at the
+    edges of its row tiles (the last rows through its direct path)."""
+    rng = np.random.default_rng(bits * 100 + rows + cols)
+    page, payload, meta = _packed_page(rng, rows, cols, bits, missing)
+    got = _decode_once(dev, torch.from_numpy(payload).to(dev), cols, bits, meta["missing"])
     want = ref.bitpack_decode(torch.from_numpy(payload), cols, bits, meta["missing"])
-    assert got.dtype == torch.uint8 and torch.equal(got.cpu(), want)
+    assert torch.equal(got.cpu(), want)
     assert np.array_equal(want.numpy(), page)
+
+
+@pytest.mark.parametrize("offset", [1, 3, 8, 15])
+@pytest.mark.parametrize(
+    "bits,rows,cols",
+    [(6, 4 * tile_rows(500) + 3, 500), (8, tile_rows(500) + 1, 500), (3, tile_rows(13) + 1, 13)],
+)
+def test_bitpack_decode_kernel_from_a_misaligned_view(dev, offset, bits, rows, cols):
+    """A payload that is a view ``offset`` bytes into a larger buffer (not
+    16-byte aligned, so no tile can be copied in bulk) decodes bit for bit."""
+    rng = np.random.default_rng(offset * 10 + bits)
+    page, payload, meta = _packed_page(rng, rows, cols, bits, True)
+    buf = torch.zeros(payload.size + offset + 16, dtype=torch.uint8, device=dev)
+    view = buf[offset : offset + payload.size].view(payload.shape)
+    view.copy_(torch.from_numpy(payload).to(dev))
+    assert view.data_ptr() % 16 != 0
+    got = _decode_once(dev, view, cols, bits, meta["missing"])
+    assert np.array_equal(got.cpu().numpy(), page)
+
+
+def test_bitpack_decode_kernel_remaps_a_missing_symbol_at_8_bits(dev):
+    """At 8 bits the decode is a copy; a missing symbol below 255 (real
+    symbols up to 253) must still become 255."""
+    from repro_torch.compress import BitpackCodec
+
+    rng = np.random.default_rng(8)
+    page = rng.integers(0, 254, size=(4 * tile_rows(500) + 3, 500)).astype(np.uint8)
+    page[0, 0] = 253
+    page[rng.random(page.shape) < 0.1] = 255
+    payload, meta = BitpackCodec().encode(page)
+    assert (meta["bits"], meta["missing"]) == (8, 254)
+    got = _decode_once(dev, torch.from_numpy(payload).to(dev), 500, 8, 254)
+    assert np.array_equal(got.cpu().numpy(), page)
+
+
+def test_bitpack_decode_kernel_is_repeatable_and_launches_once_a_call(dev):
+    """Two decodes of one page give the same bytes, and every call is one
+    launch whichever of the kernel's paths it takes: whole tiles only,
+    tiles and a ragged tail, no whole tile, a misaligned view."""
+    rng = np.random.default_rng(9)
+    page, payload, meta = _packed_page(rng, 67_108, 500, 6, True)
+    p = torch.from_numpy(payload).to(dev)
+    first = _decode_once(dev, p, 500, 6, meta["missing"])
+    assert torch.equal(first, _decode_once(dev, p, 500, 6, meta["missing"]))
+    assert np.array_equal(first.cpu().numpy(), page)
+    for rows in (64, 65, 31):
+        _decode_once(dev, p[:rows], 500, 6, meta["missing"])
+    buf = torch.zeros(payload.size + 16, dtype=torch.uint8, device=dev)
+    view = buf[1 : 1 + 65 * 375].view(65, 375).copy_(p[:65])
+    assert torch.equal(_decode_once(dev, view, 500, 6, meta["missing"]), first[:65])
 
 
 def test_bitpack_decode_kernel_at_a_page_shape(dev):
     """One 32 MiB streaming page (67,108 x 500) at 8 bits, and at 6 bits
-    with missing values (max_bin 32)."""
+    with missing values (max_bin 32), and the in-core decode of 200,000 x
+    500 at 6 bits."""
     from repro_torch.kernels import bitpack as k_bitpack
 
     rng = np.random.default_rng(5)
-    for bits, missing in ((8, False), (6, True)):
-        page, payload, meta = _packed_page(rng, 67_108, 500, bits, missing)
+    for rows, bits, missing in ((67_108, 8, False), (67_108, 6, True), (200_000, 6, True)):
+        page, payload, meta = _packed_page(rng, rows, 500, bits, missing)
         got = k_bitpack.bitpack_decode(torch.from_numpy(payload).to(dev), 500, bits,
                                        meta["missing"])
         assert np.array_equal(got.cpu().numpy(), page)
