@@ -197,6 +197,27 @@ Phases, each of which fails the run on error:
      Each rank prints seconds a tree, the all-reduce's seconds, bytes and
      calls a tree, and its launches, which the kernels line adds as the
      sharded path (every kernel must be launched on it).
+  13. LM serving (`repro_torch.models`, after phase 11 (b)): (a) llama3.2-1b
+     (dense), olmoe-1b-7b (MoE, 64 experts top-8), mamba2-130m (SSM) and
+     hymba-1.5b (hybrid), each at its full CONFIG in bf16 with random
+     weights from a seeded generator on the card, served through
+     ``repro_torch.launch.serve.main`` (batch 4, prompt 32, 16 greedy
+     tokens; dense and MoE also ``--paged``): every logit finite; prefill's
+     and the first decode step's logits, contiguous and paged, against
+     ``forward`` over the prompt plus that token, in bf16 and on the same
+     weights widened to f32 (relative to the largest logit; MoE at a
+     capacity at which neither drops an assignment and with every token
+     routed as the forward routes it, its gap as served printed): on the
+     served weights where they are well conditioned (a 1e-7 nudge of the
+     embeddings moves the f32 logits by at most 2e-3), and for every model
+     with attention on the same weights with q and k scaled by 0.1; paged
+     against contiguous as served; prefill s, decode tok/s, wall ms a step,
+     the card's busy ms a step (`torch.profiler`), peak device memory and
+     the step's bytes bound printed; each model freed before the next. (b) every arch at REDUCED (f32) and the four serve cases of
+     ``tests/test_models.py``: the same weights serve prefill and 4 greedy
+     decode steps on the card and on the CPU, logits within 1e-4 and tokens
+     equal. TF32 matmuls must be off (PyTorch's default; checked, not set).
+     It launches none of the six kernels (counted from zero and printed).
 
 The streaming and sampled fits' device-memory peaks above their starts must
 stay within the budget their policy decided under (phases 6 and 6b). The card's compute mode must be
@@ -588,6 +609,10 @@ def main(argv=None) -> int:
     stream_codec_launches = compression_stream_phase(args.seed, dev, params)
     results.append(bitpack_row)
 
+    # 13. LM serving on the card: one model a family at full width, and every
+    # arch held against the CPU
+    lm_launches = lm_serving_phase(dev)
+
     # launches: the paths' runs (phase 10's lossguide fits among them), each
     # counted from zero (per path above);
     # the chunk-shape row of predict_forest counts its chunked launches alone
@@ -597,7 +622,7 @@ def main(argv=None) -> int:
             for path in (in_core_launches, stream_launches, sampled_launches, elastic_launches,
                          serving_launches, lg_core_launches, lg_paged_launches,
                          lg_elastic_launches, grad_launches, serve_codec_launches,
-                         stream_codec_launches, sharded_launches)
+                         stream_codec_launches, sharded_launches, lm_launches)
         )
     i = next(i for i, r in enumerate(results) if r["name"] == "predict_forest")
     results.insert(i + 1, chunk_row)
@@ -3251,6 +3276,408 @@ def shard_rank_main(args) -> int:
         np.savez(d / "rank0.npz", **arrays)
     dist.destroy_process_group()
     return 0
+
+
+# ----------------------------------------------------- phase 13: LM serving
+# (a): one arch of each family at its full CONFIG, in bf16, through the
+# serving entry point; the attention families also paged
+LM_FULL = (("llama3.2-1b", True), ("olmoe-1b-7b", True), ("mamba2-130m", False),
+           ("hymba-1.5b", False))
+LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 32, 16
+LM_DEVICE_STEPS = 4  # decode steps traced for the card's busy time
+# (a)'s checks, |a - b| / max |b| over a step's logits. bf16 serving (prefill
+# into caches, decode attention over them) against the bf16 forward over the
+# same tokens, and paged against contiguous, round the same values to bf16
+# along different paths (matmul shapes, softmax lengths); at the reference's
+# init the attention scores are large (its dense_init scales stacked weights
+# by 1/sqrt(n_layers)), so a rounding can move a near-one-hot softmax, and
+# the gap grows with depth: on the H100 it was 4.3% (llama3.2-1b), 4.7%
+# (mamba2-130m) and 8.7% (hymba-1.5b) of the largest logit, where a wrong
+# decode position moves the logits by O(1). The same weights widened to f32
+# are the sharp hold: 1.1e-4, 3.4e-4 and 1.7e-4 there.
+LM_BF16_REL_TOL = 0.2
+LM_F32_REL_TOL = 5e-3
+# ... but at that init a deep network whose residual stream attention
+# dominates is chaotic: on the H100 a 1e-7 relative nudge of olmoe-1b-7b's
+# embeddings moves its f32 forward's own logits by 48% (llama3.2-1b 3.8e-5,
+# mamba2-130m 4.7e-4, hymba-1.5b 7.4e-5), so no tolerance tells a bug from
+# rounding there. The served weights are held where that nudge moves the
+# logits by at most LM_CONDITIONED; every model with attention is also held
+# on the same weights with the query and key projections scaled by
+# LM_TEMPER, which keeps the attention scores O(1) (olmoe's f32 gap then
+# 2.4e-6, its bf16 gap 0.8%).
+LM_NUDGE = 1e-7
+LM_CONDITIONED = 2e-3
+LM_TEMPER = 0.1
+LM_CACHES = {"dense": "contiguous cache", "moe": "contiguous cache", "ssm": "SSM state",
+             "hybrid": "ring and full caches + SSM state"}
+# (b): the card against the CPU at f32, the CPU tests' tolerance
+LM_F32_RTOL = LM_F32_ATOL = 1e-4
+LM_CPU_STEPS = 4
+# (b)'s extra configs: the serve cases of tests/test_models.py
+LM_CASES = {
+    "dense": dict(family="dense", n_layers=3, d_model=64, vocab_size=128, n_heads=4,
+                  n_kv_heads=2, d_ff=128, dtype="float32"),
+    "moe": dict(family="moe", n_layers=3, d_model=64, vocab_size=128, n_heads=4, n_kv_heads=4,
+                d_ff=64, n_experts=4, top_k=2, first_k_dense=1, capacity_factor=8.0,
+                dtype="float32"),
+    "ssm": dict(family="ssm", n_layers=3, d_model=64, vocab_size=128, ssm_state=16,
+                ssm_head_dim=16, ssm_chunk=8, dtype="float32"),
+    "hyb": dict(family="hybrid", n_layers=4, d_model=64, vocab_size=128, n_heads=4,
+                n_kv_heads=2, d_ff=128, ssm_state=16, ssm_head_dim=16, ssm_chunk=8,
+                swa_window=8, n_global_layers=2, dtype="float32"),
+}
+
+
+def _rel_err(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _lm_step_bytes(cfg, params, batch: int, ctx: int) -> tuple[int, int, int]:
+    """Bytes a decode step must read at context ``ctx`` (the new token
+    included): (parameters as the port reads them, the same with only the
+    routed experts' weights a token, caches and recurrent state). An
+    untied embedding table gives only the batch's rows; a tied one is also
+    the output head, read whole. The port's MoE reads every expert's weights
+    (C = 8 slots each at one token a group)."""
+    from repro_torch.models.transformer import param_bytes
+
+    esize = params["final_norm"].element_size()
+    read = param_bytes(params)
+    if "embed" in params and not cfg.tie_embeddings:
+        read -= params["embed"].numel() * esize - batch * cfg.d_model * esize
+    active = read
+    if cfg.family == "moe":
+        moe_layers = cfg.n_layers - cfg.first_k_dense
+        active -= moe_layers * (cfg.n_experts - cfg.top_k) * 3 * cfg.d_model * cfg.d_ff * esize
+    state = 0
+    if cfg.family in ("dense", "moe", "hybrid"):
+        for i in range(cfg.n_layers):
+            w = cfg.attn_window(i)
+            tokens = min(w, ctx) if w > 0 else ctx
+            state += 2 * batch * tokens * cfg.n_kv_heads * cfg.head_dim * esize
+    if cfg.family in ("ssm", "hybrid"):  # conv window and SSD state, read and written
+        conv = (cfg.ssm_conv - 1) * (cfg.d_inner + 2 * cfg.ssm_state) * esize
+        ssd = cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4
+        state += 2 * cfg.n_layers * batch * (conv + ssd)
+    return read, active, state
+
+
+class _RouteTape:
+    """Stands in for `repro_torch.models.moe.route` during a consistency
+    check: records the experts each MoE layer routes every token to in the
+    forward pass, then hands the same experts to prefill (the prompt's
+    tokens) and to the decode step (the new token), with the router weights
+    of those experts' logits. Routing is a discontinuous function of the
+    logits, so without it two paths whose roundings differ (matmul shapes)
+    route a near-tied token apart and their logits part by O(1)."""
+
+    def __init__(self, route):
+        self.route, self.ids, self.replay, self.calls, self.offset = route, [], False, 0, 0
+
+    def __call__(self, logits, top_k):
+        import torch
+
+        if not self.replay:
+            ids, weights = self.route(logits, top_k)
+            self.ids.append(ids)
+            return ids, weights
+        ids = self.ids[self.calls][:, self.offset : self.offset + logits.shape[1]]
+        self.calls += 1
+        return ids, torch.softmax(torch.gather(logits, -1, ids).float(), dim=-1)
+
+    def play_from(self, offset: int) -> None:
+        self.replay, self.calls, self.offset = True, 0, offset
+
+
+def _cat_tok(prompts, tok):
+    import torch
+
+    return torch.cat([prompts, tok[:, None]], dim=1)
+
+
+def _tempered(params: dict) -> dict:
+    """``params`` with every attention stack's query and key projections
+    scaled by LM_TEMPER (new tensors; the rest shared)."""
+    out = dict(params)
+    for key in ("blocks", "dense_blocks"):
+        if "wq" in params.get(key, {}):
+            out[key] = dict(params[key], wq=params[key]["wq"] * LM_TEMPER,
+                            wk=params[key]["wk"] * LM_TEMPER)
+    return out
+
+
+def _lm_nudge(params, cfg, tokens) -> float:
+    """How far the forward's last logits move when the embeddings are
+    scaled by 1 + LM_NUDGE (relative to the largest logit): the
+    conditioning of the logits the consistency check compares."""
+    import torch
+
+    from repro_torch.models.transformer import forward
+
+    with torch.inference_mode():
+        full, _ = forward(params, cfg, {"tokens": tokens})
+        nudged = dict(params, embed=params["embed"] * (1 + LM_NUDGE))
+        moved, _ = forward(nudged, cfg, {"tokens": tokens})
+    return _rel_err(moved[:, -1], full[:, -1])
+
+
+def _lm_device_step(params, cfg, prompts, tok0) -> tuple[float | None, float]:
+    """The card's busy ms a decode step and the device activities (kernels,
+    copies, fills) it runs, from a `torch.profiler` trace of LM_DEVICE_STEPS
+    steps (CUPTI): the activities of one stream do not overlap, so their
+    durations add up to the time the card works. None where the trace holds
+    no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import serve as lm_serve
+
+    n, S = LM_DEVICE_STEPS, prompts.shape[1]
+    with torch.inference_mode():
+        _, cache = lm_serve.prefill(params, cfg, prompts, max_len=S + n + 1)
+        _, cache = lm_serve.decode_step(params, cfg, tok0, cache)  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                _, cache = lm_serve.decode_step(params, cfg, tok0, cache)
+            torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3 / n
+    return (busy_ms if device else None), len(device) / n
+
+
+def _lm_consistency(params, cfg, prompts, tok0, logits=None,
+                    paged: bool = False) -> tuple[float, float]:
+    """Serving (into a paged KV cache if ``paged``) against the forward pass
+    over the prompt plus ``tok0``: relative errors of prefill's logits and of
+    the first decode step's. ``logits`` are that prefill's and step's when a
+    run already made them. For a MoE config serving routes every token as
+    the forward did (`_RouteTape`)."""
+    import torch
+
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import serve as lm_serve
+    from repro_torch.models.transformer import forward
+
+    S = prompts.shape[1]
+    tape = _RouteTape(moe_lib.route) if cfg.family == "moe" and logits is None else None
+    try:
+        if tape is not None:
+            moe_lib.route = tape
+        with torch.inference_mode():
+            full, _ = forward(params, cfg, {"tokens": _cat_tok(prompts, tok0)})
+            if logits is None:
+                if tape is not None:
+                    tape.play_from(0)
+                pre, cache = lm_serve.prefill(params, cfg, prompts, max_len=S + 1, paged=paged)
+                if tape is not None:
+                    tape.play_from(S)
+                step, _ = lm_serve.decode_step(params, cfg, tok0, cache)
+            else:
+                pre, step = logits
+    finally:
+        if tape is not None:
+            moe_lib.route = tape.route
+    if tape is not None and tape.calls != len(tape.ids):
+        raise SystemExit(f"{cfg.name}: the decode step replayed {tape.calls} of "
+                         f"{len(tape.ids)} MoE layers' routing")
+    return _rel_err(pre, full[:, S - 1]), _rel_err(step, full[:, S])
+
+
+def lm_full_width(dev, arch: str, paged: bool) -> None:
+    """13 (a) for one arch: served through the entry point (bf16, full
+    CONFIG), checked against the forward pass in bf16 and, on the same
+    weights widened to f32, in f32; paged against contiguous; timed and
+    bounded."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch import serve as serve_cmd
+    from repro_torch.models.transformer import param_count
+
+    argv = ["--arch", arch, "--full", "--batch", str(LM_BATCH), "--prompt-len", str(LM_PROMPT),
+            "--tokens", str(LM_TOKENS), "--device", str(dev)]
+    B = LM_BATCH
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    run = serve_cmd.main(argv)
+    peak = torch.cuda.max_memory_allocated(dev)
+    cfg, params, tok0 = run.cfg, run.params, run.tokens[0]
+    if cfg.dtype != "bfloat16" or not all(bool(torch.isfinite(lg).all()) for lg in run.logits):
+        raise SystemExit(f"{arch}: logits not all finite, or not bf16 ({cfg.dtype})")
+
+    # check 1: serving against the forward pass over the prompt plus tok0
+    check_cfg, logits = cfg, run.logits[:2]
+    if cfg.family == "moe":
+        # forward over S + 1 tokens a group drops assignments at capacity
+        # that decode (one token a group, 8 slots an expert) never drops, and
+        # the two paths route near-tied tokens apart: print that gap, then
+        # hold serving to the forward at a capacity at which neither drops
+        # (C >= the group's tokens), each token routed as in the forward
+        gap = _lm_consistency(params, cfg, run.prompts, tok0, logits)
+        print(f"  {arch} as served (capacity_factor {cfg.capacity_factor:g}, own routing): "
+              f"prefill vs forward rel err {gap[0]:.6f}, decode step 1 vs forward {gap[1]:.6f} "
+              f"(printed, not checked)")
+        check_cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        logits = None
+    f32_cfg = dataclasses.replace(check_cfg, dtype="float32")
+    wide = _tree_to(params, None)
+    nudge = _lm_nudge(wide, f32_cfg, _cat_tok(run.prompts, tok0))
+    conditioned = nudge <= LM_CONDITIONED
+    print(f"  {arch}: a {LM_NUDGE:g} nudge of the embeddings moves the f32 forward's last "
+          f"logits by {nudge:.3e} of the largest: the served weights are "
+          f"{'' if conditioned else 'not '}held (bound {LM_CONDITIONED:g})")
+    passes = [("served weights", params, logits)]
+    if cfg.family != "ssm":  # attention to temper
+        passes.append((f"q, k x {LM_TEMPER:g}", _tempered(params), None))
+    for label, weights, given in passes:
+        if weights is not params:
+            wide = _tree_to(weights, None)
+        checked = weights is not params or conditioned
+        for pg in (False, True)[: 1 + paged]:
+            cache = "paged cache" if pg else LM_CACHES[cfg.family]
+            e16 = _lm_consistency(weights, check_cfg, run.prompts, tok0, None if pg else given,
+                                  paged=pg)
+            e32 = _lm_consistency(wide, f32_cfg, run.prompts, tok0, paged=pg)
+            print(f"  {arch} consistency, {label}, {cache}"
+                  f"{', routed as the forward' if cfg.family == 'moe' else ''}: bf16 prefill vs "
+                  f"forward rel err {e16[0]:.6f}, decode step 1 {e16[1]:.6f} (bound "
+                  f"{LM_BF16_REL_TOL}); in f32 {e32[0]:.3e}, {e32[1]:.3e} (bound "
+                  f"{LM_F32_REL_TOL}){'' if checked else '; printed, not checked'}")
+            if checked and (max(e16) > LM_BF16_REL_TOL or max(e32) > LM_F32_REL_TOL):
+                raise SystemExit(f"{arch}: {cache} serving disagrees with the forward pass "
+                                 f"({label})")
+    del wide, passes, weights
+
+    step_ms = (run.decode_s - run.first_step_s) / (LM_TOKENS - 1) * 1e3
+    device_ms, activities = _lm_device_step(params, cfg, run.prompts, tok0)
+    read, active, state = _lm_step_bytes(cfg, params, B, LM_PROMPT + LM_TOKENS)
+    bound_ms = (read + state) / HBM_BYTES_PER_S * 1e3
+    note = ""
+    if cfg.family == "moe":
+        note = (f"; reads all {cfg.n_experts} experts a step (8 slots each at one token a "
+                f"group): with only the {cfg.top_k} routed a token it would be {active} B, "
+                f"{(active + state) / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    print(f"lm serve {arch}: params={param_count(params)} "
+          f"prefill_s={run.prefill_s:.4f} decode_s={run.decode_s:.4f} "
+          f"tok_per_s={LM_TOKENS * B / run.decode_s:.1f} first_step_ms={run.first_step_s * 1e3:.3f} "
+          f"step_ms={step_ms:.3f} (steps 2-{LM_TOKENS}) steady_tok_per_s={B / step_ms * 1e3:.1f} "
+          f"peak_device_bytes={peak} (at start {base}) bound_ms={bound_ms:.4f} "
+          f"(bytes: {read} B of parameters + {state} B of caches and state a step at the last "
+          f"step's context, over {HBM_BYTES_PER_S / 1e12:.2f} TB/s){note} "
+          f"step/bound={step_ms / bound_ms:.2f} device_busy_ms="
+          + (f"{device_ms:.3f} a step (profiler, {LM_DEVICE_STEPS} steps, "
+             f"{activities:.0f} device activities a step) device_busy_share="
+             f"{device_ms / step_ms:.3f}" if device_ms is not None
+             else "not measured (no device activity in the profiler's trace)"))
+    contiguous = [lg.clone() for lg in run.logits[:2]]
+    del run, params
+    torch.cuda.empty_cache()
+    if not paged:
+        return
+
+    # check 2: paged against contiguous, the same weights (the same seed)
+    torch.cuda.reset_peak_memory_stats(dev)
+    paged_run = serve_cmd.main(argv + ["--paged"])
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(bool(torch.isfinite(lg).all()) for lg in paged_run.logits):
+        raise SystemExit(f"{arch} paged: logits not all finite")
+    e_pre = _rel_err(paged_run.logits[0], contiguous[0])
+    e_step = _rel_err(paged_run.logits[1], contiguous[1])
+    step_ms = (paged_run.decode_s - paged_run.first_step_s) / (LM_TOKENS - 1) * 1e3
+    print(f"  {arch} paged vs contiguous, as served: prefill rel err {e_pre:.6f}, decode "
+          f"step 1 {e_step:.6f} (bound {LM_BF16_REL_TOL})"
+          f"{'' if conditioned else '; printed, not checked (the nudge above)'}")
+    print(f"lm serve {arch} paged: prefill_s={paged_run.prefill_s:.4f} "
+          f"decode_s={paged_run.decode_s:.4f} tok_per_s={LM_TOKENS * B / paged_run.decode_s:.1f} "
+          f"step_ms={step_ms:.3f} peak_device_bytes={peak}")
+    if conditioned and max(e_pre, e_step) > LM_BF16_REL_TOL:
+        raise SystemExit(f"{arch}: paged serving disagrees with contiguous")
+    del paged_run
+    torch.cuda.empty_cache()
+
+
+def _tree_to(tree: dict, dev) -> dict:
+    """A parameter tree moved to ``dev``, or widened to f32 where ``dev`` is None."""
+    return {k: _tree_to(v, dev) if isinstance(v, dict) else (v.float() if dev is None else
+                                                               v.to(dev))
+            for k, v in tree.items()}
+
+
+def lm_card_vs_cpu(dev) -> None:
+    """13 (b): every arch at REDUCED (f32) and the four serve cases: the same
+    weights serve prefill and LM_CPU_STEPS greedy decode steps on the card and
+    on the host, through the same functions."""
+    import torch
+
+    from repro_torch.configs.registry import LM_ARCHS, get_config
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.serve import decode_step, prefill
+    from repro_torch.models.transformer import init_params
+
+    B, S = 2, 24
+    cpu = torch.device("cpu")
+    cfgs = [get_config(a, reduced=True) for a in LM_ARCHS]
+    cfgs += [ModelConfig(name=f"case-{k}", **kw) for k, kw in LM_CASES.items()]
+    worst, runs = 0.0, 0
+    for cfg in cfgs:
+        params = init_params(cfg, torch.Generator().manual_seed(0), cpu)
+        on_card = _tree_to(params, dev)
+        rng = torch.Generator().manual_seed(1)
+        shape = (B, S, cfg.n_codebooks) if cfg.n_codebooks else (B, S)
+        prompts = torch.randint(0, cfg.vocab_size, shape, generator=rng)
+        for paged in ((False, True) if cfg.family in ("dense", "moe") else (False,)):
+            got = []
+            with torch.inference_mode():
+                for p, d in ((params, cpu), (on_card, dev)):
+                    lg, cache = prefill(p, cfg, prompts.to(d), max_len=S + LM_CPU_STEPS,
+                                        paged=paged)
+                    steps = [lg.cpu()]
+                    for _ in range(LM_CPU_STEPS):
+                        lg, cache = decode_step(p, cfg, torch.argmax(lg, -1), cache)
+                        steps.append(lg.cpu())
+                    got.append(steps)
+            for i, (a, b) in enumerate(zip(got[1], got[0])):
+                if not torch.allclose(a, b, rtol=LM_F32_RTOL, atol=LM_F32_ATOL):
+                    raise SystemExit(f"{cfg.name}{' paged' if paged else ''}: card and CPU "
+                                     f"logits differ at step {i}: max "
+                                     f"{float((a - b).abs().max()):.3e}")
+                if not torch.equal(a.argmax(-1), b.argmax(-1)):
+                    raise SystemExit(f"{cfg.name}: card and CPU greedy tokens differ at step {i}")
+                worst = max(worst, float((a - b).abs().max()))
+            runs += 1
+    print(f"lm card vs cpu: {len(cfgs)} configs ({len(LM_ARCHS)} archs at REDUCED + "
+          f"{len(LM_CASES)} serve cases), {runs} runs of prefill + {LM_CPU_STEPS} decode steps at "
+          f"f32: logits within rtol=atol={LM_F32_RTOL} (max |diff| {worst:.3e}), greedy tokens "
+          f"equal")
+
+
+def lm_serving_phase(dev) -> dict:
+    """Phase 13: LM serving on the card. Returns its launch counts of the
+    port's kernels (it launches none of them: the models' products are
+    torch matmuls, as the reference's are jnp)."""
+    import torch
+
+    from repro_torch.kernels import launch_counts as read_counts
+    from repro_torch.kernels import reset_launch_counts as zero_counts
+
+    # the f32 hold against the CPU needs full-precision f32 matmuls:
+    # PyTorch's default, which this phase checks and does not set
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise SystemExit("TF32 matmuls are enabled; the f32 card-vs-CPU hold needs them off")
+    t0 = time.perf_counter()
+    zero_counts()
+    for arch, paged in LM_FULL:
+        lm_full_width(dev, arch, paged)
+    lm_card_vs_cpu(dev)
+    counts = read_counts()
+    print(f"lm serving path launches: {json.dumps(counts)} ({time.perf_counter() - t0:.1f} s)")
+    return counts
 
 
 PAPER = None  # the paper configuration (repro_torch.configs.xgb_paper.CONFIG)

@@ -1,12 +1,18 @@
-"""Synthetic dataset generator (paper §4.1 uses sklearn make_classification).
+"""Synthetic dataset generators (paper §4.1 uses sklearn make_classification).
 
-Counterpart of `make_classification` in `repro.data.synthetic`, a numpy copy:
-informative features drawn from class-dependent Gaussian clusters, redundant
-features as random linear combinations, plus pure-noise features. Batches
-are deterministic in (seed, batch), and the same arguments give the same
-arrays as the reference.
+Counterpart of `repro.data.synthetic`, a numpy copy: informative features
+drawn from class-dependent Gaussian clusters, redundant features as random
+linear combinations, plus pure-noise features; HIGGS-shaped and regression
+batches; and the streaming sources built on them. Batches are deterministic
+in (seed, batch), so a streaming source can be re-iterated bit-identically
+(out-of-core training reads the data several times), and the same arguments
+give the same arrays as the reference.
 """
 from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Iterator
 
 import numpy as np
 
@@ -51,3 +57,105 @@ def make_classification(
         mask = rng.random(X.shape) < missing_rate
         X[mask] = np.nan
     return X, y.astype(np.float32)
+
+
+def make_higgs_like(
+    n_rows: int, seed: int = 0, batch: int = 0, missing_rate: float = 0.0
+) -> tuple[np.ndarray, np.ndarray]:
+    """HIGGS-shaped data: 28 features, nonlinear decision boundary (§4.3 analogue)."""
+    rng = _rng(seed, batch)
+    m = 28
+    X = rng.normal(size=(n_rows, m)).astype(np.float32)
+    # low-level kinematic features interact nonlinearly, like the physics set
+    mrng = _rng(seed, -1)
+    w1 = mrng.normal(size=(m,))
+    w2 = mrng.normal(size=(m,))
+    logits = (
+        X @ w1 * 0.5
+        + np.sin(X @ w2)
+        + 0.8 * X[:, 0] * X[:, 1]
+        - 0.6 * X[:, 2] * X[:, 3] * np.tanh(X[:, 4])
+    )
+    logits = logits / np.std(logits)
+    p = 1.0 / (1.0 + np.exp(-2.0 * logits))
+    y = (rng.random(n_rows) < p).astype(np.float32)
+    if missing_rate > 0:
+        mask = rng.random(X.shape) < missing_rate
+        X[mask] = np.nan
+    return X, y
+
+
+def make_regression(
+    n_rows: int, num_features: int, noise: float = 0.1, seed: int = 0, batch: int = 0
+) -> tuple[np.ndarray, np.ndarray]:
+    rng = _rng(seed, batch)
+    mrng = _rng(seed, -1)
+    w = mrng.normal(size=(num_features,))
+    X = rng.normal(size=(n_rows, num_features)).astype(np.float32)
+    y = X @ w + np.sin(2.0 * X[:, 0]) + noise * rng.normal(size=n_rows)
+    return X, y.astype(np.float32)
+
+
+@dataclasses.dataclass
+class SyntheticSource:
+    """Streaming data source: batches generated on demand, re-iterable."""
+
+    n_rows: int
+    num_features: int
+    batch_rows: int = 65536
+    task: str = "classification"  # classification | higgs | regression
+    seed: int = 0
+    missing_rate: float = 0.0
+    batch_offset: int = 0  # start batch index (use a large offset for eval splits)
+
+    def __post_init__(self):
+        if self.task == "higgs":
+            self.num_features = 28  # HIGGS has 28 features
+
+    @property
+    def n_batches(self) -> int:
+        return math.ceil(self.n_rows / self.batch_rows)
+
+    def iter_batches(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        for b0 in range(self.n_batches):
+            b = b0 + self.batch_offset
+            rows = min(self.batch_rows, self.n_rows - b0 * self.batch_rows)
+            if self.task == "classification":
+                yield make_classification(
+                    rows, self.num_features, seed=self.seed, batch=b,
+                    missing_rate=self.missing_rate,
+                )
+            elif self.task == "higgs":
+                yield make_higgs_like(
+                    rows, seed=self.seed, batch=b, missing_rate=self.missing_rate
+                )
+            elif self.task == "regression":
+                yield make_regression(rows, self.num_features, seed=self.seed, batch=b)
+            else:
+                raise ValueError(self.task)
+
+    def materialize(self) -> tuple[np.ndarray, np.ndarray]:
+        xs, ys = zip(*self.iter_batches())
+        return np.concatenate(xs), np.concatenate(ys)
+
+
+@dataclasses.dataclass
+class ArraySource:
+    """In-memory arrays exposed through the streaming-source protocol."""
+
+    X: np.ndarray
+    y: np.ndarray
+    batch_rows: int = 65536
+
+    @property
+    def n_rows(self) -> int:
+        return self.X.shape[0]
+
+    @property
+    def num_features(self) -> int:
+        return self.X.shape[1]
+
+    def iter_batches(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        for start in range(0, self.n_rows, self.batch_rows):
+            sl = slice(start, start + self.batch_rows)
+            yield self.X[sl], self.y[sl]

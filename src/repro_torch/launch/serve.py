@@ -1,20 +1,27 @@
-"""Forest serving command: a checkpointed forest behind the micro-batcher.
+"""Serving command: forest serving (BatchServer) or LM prefill + decode.
 
-Counterpart of the forest mode of `repro.launch.serve`. Loads a
-`GradientBooster.save` checkpoint (written by either package) onto
-``--device`` ("cuda" unless asked otherwise), serves ``--requests`` single
-rows through a `BatchServer` over a `ForestServer`, checks the answers equal
-a direct ``predict_margin`` of the same rows bit for bit, and prints the
-`ServeStats` and residency ledgers:
+Counterpart of `repro.launch.serve`. Both modes run on ``--device`` ("cuda"
+unless asked otherwise; without a CUDA device that raises).
+
+Forest mode loads a `GradientBooster.save` checkpoint (written by either
+package), serves ``--requests`` single rows through a `BatchServer` over a
+`ForestServer`, checks the answers equal a direct ``predict_margin`` of the
+same rows bit for bit, and prints the `ServeStats` and residency ledgers:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --forest ckpt/ --requests 2048
 
-The LM mode of the reference (``--arch``) is not ported (ROADMAP queue 1
-item 11).
+LM mode runs batched prefill + greedy decode for any assigned arch, at its
+reduced config unless ``--full``, with random weights from a seeded
+generator, and prints the prefill time, the decode rate and the greedy
+continuation:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b --tokens 16 --paged
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import time
 
 import numpy as np
 
@@ -75,11 +82,91 @@ def serve_forest(args) -> None:
               f"({stats.h2d_bytes_per_request:,.0f} B/request)")
 
 
-def main(argv=None) -> None:
+@dataclasses.dataclass
+class LMServeRun:
+    """What `serve_lm` served: the config and weights, the prompts, the
+    greedy tokens (prefill's, then one a decode step), the logits of prefill
+    and of every decode step, and the host seconds of prefill and decode
+    (each ending in a device synchronise)."""
+
+    cfg: object
+    params: dict
+    prompts: object
+    tokens: list
+    logits: list
+    prefill_s: float
+    decode_s: float
+    first_step_s: float
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve_lm(args) -> LMServeRun:
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.booster import resolve_device
+    from repro_torch.models.serve import decode_step, prefill
+    from repro_torch.models.transformer import init_params
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch, reduced=not args.full)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = init_params(cfg, gen, dev)
+    rng = np.random.default_rng(0)
+    shape = (args.batch, args.prompt_len)
+    if cfg.n_codebooks:
+        shape += (cfg.n_codebooks,)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
+
+    max_len = args.prompt_len + args.tokens
+    paged = args.paged and cfg.family in ("dense", "moe")
+    with torch.inference_mode():
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, cfg, prompts, max_len=max_len, paged=paged)
+        _sync(dev)
+        prefill_s = time.perf_counter() - t0
+        print(f"prefill: {args.batch}x{args.prompt_len} in {prefill_s:.4f}s")
+
+        tok = torch.argmax(logits, dim=-1)
+        out, seen = [tok], [logits]
+        t0 = time.perf_counter()
+        first_s = 0.0
+        for i in range(args.tokens):
+            lg, cache = decode_step(params, cfg, tok, cache)
+            tok = torch.argmax(lg, dim=-1)
+            out.append(tok)
+            seen.append(lg)
+            if i == 0:
+                _sync(dev)
+                first_s = time.perf_counter() - t0
+        _sync(dev)
+        dt = time.perf_counter() - t0
+    steady = (
+        f"; {(dt - first_s) / (args.tokens - 1) * 1e3:.3f} ms a step after the first"
+        if args.tokens > 1 else ""
+    )
+    print(f"decode: {args.tokens} steps x batch {args.batch} in {dt:.4f}s "
+          f"({args.tokens * args.batch / dt:.1f} tok/s{steady})")
+    first = [int(t.reshape(args.batch, -1)[0, 0]) for t in out]
+    print("greedy continuation (seq 0):", first)
+    return LMServeRun(cfg, params, prompts, out, seen, prefill_s, dt, first_s)
+
+
+def main(argv=None):
+    from repro_torch.configs.registry import LM_ARCHS
+
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--forest", help="GradientBooster checkpoint dir to serve")
     ap.add_argument("--device", default="cuda",
-                    help="device to serve on: cuda (the kernels) or cpu (their plain versions)")
+                    help="device to serve on: cuda (the kernels), or cpu (their plain "
+                         "versions, and the LM on the host)")
     ap.add_argument("--requests", type=int, default=1024)
     ap.add_argument("--max-batch", type=int, default=256)
     ap.add_argument("--max-delay-ms", type=float, default=2.0)
@@ -92,15 +179,23 @@ def main(argv=None) -> None:
     ap.add_argument("--serve-budget-mib", type=float, default=None,
                     help="byte budget (MiB) of the shared row-page/tree-chunk "
                          "residency cache")
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--arch", help="LM architecture to serve: not ported (ROADMAP item 11)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the forest's request rows, or of the LM's weights")
+    # LM mode
+    ap.add_argument("--arch", choices=LM_ARCHS,
+                    help="LM arch to serve (ignored with --forest)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--tokens", type=int, default=16)
+    ap.add_argument("--paged", action="store_true")
+    ap.add_argument("--full", action="store_true")
     args = ap.parse_args(argv)
 
+    if args.forest:
+        return serve_forest(args)
     if args.arch:
-        ap.error("LM serving (--arch) is not ported: ROADMAP queue 1 item 11")
-    if not args.forest:
-        ap.error("pass --forest <checkpoint dir>")
-    serve_forest(args)
+        return serve_lm(args)
+    ap.error("pass --forest <checkpoint dir> or --arch <lm arch>")
 
 
 if __name__ == "__main__":

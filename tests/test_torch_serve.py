@@ -532,8 +532,22 @@ def test_forest_server_command_runs_on_the_cpu(pair):
     out = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "served 64 requests" in out.stdout and "residency:" in out.stdout
+    # LM mode (--arch) on the host: prefill, decode and the greedy continuation
     lm = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "llama3.2-1b"],
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "smollm-135m",
+         "--device", "cpu", "--tokens", "4"],
         env=env, capture_output=True, text=True, timeout=300,
     )
-    assert lm.returncode != 0 and "item 11" in lm.stderr
+    assert lm.returncode == 0, lm.stderr
+    lines = lm.stdout.splitlines()
+    assert lines[0].startswith("prefill: 4x32 in ")
+    assert lines[1].startswith("decode: 4 steps x batch 4 in ") and "tok/s" in lines[1]
+    assert lines[2].startswith("greedy continuation (seq 0): [")
+    assert len(lines[2].split("[", 1)[1].split(",")) == 5  # prefill's token + 4 decoded
+    # without --device cpu it serves on the card, and with no card it raises
+    no_card = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "smollm-135m",
+         "--tokens", "1"],
+        env=dict(env, CUDA_VISIBLE_DEVICES=""), capture_output=True, text=True, timeout=300,
+    )
+    assert no_card.returncode != 0 and "torch.cuda.is_available() is False" in no_card.stderr
