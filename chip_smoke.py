@@ -218,6 +218,29 @@ Phases, each of which fails the run on error:
      decode steps on the card and on the CPU, logits within 1e-4 and tokens
      equal. TF32 matmuls must be off (PyTorch's default; checked, not set).
      It launches none of the six kernels (counted from zero and printed).
+  14. LM training (`repro_torch.train`, after phase 13): (a) through
+     ``repro_torch.launch.train.main`` at full CONFIG in bf16 with random
+     weights from a seeded generator: llama3.2-1b (batch 4, seq 512, 8
+     steps, then 8 with ``--mvs-f 0.5``), mamba2-130m (3 steps into a
+     checkpoint directory, the restored state bit for bit the saved one,
+     then ``--resume`` for 2 more) and hymba-1.5b (3 steps); olmoe-1b-7b at
+     full width with its depth cut to what one card holds (printed), 3
+     steps of `make_train_step`. Every loss and grad norm finite, MVS's kept
+     fraction in [0, 1] each step and in (0, 1] over the run; wall ms a
+     step (after a synchronise), tokens/s, peak device memory, the step's
+     FLOP bound (8 x the parameters a token meets x tokens with remat, over
+     the dense bf16 peak) and the card's busy share of a step from a
+     `torch.profiler` trace of 2 steps. (b) 20 steps of
+     `make_train_step` on one fixed batch of llama3.2-1b REDUCED lower the
+     loss. (c) every REDUCED arch at f32: one `make_train_step` step and one
+     `make_mvs_train_step` step (text models) from the same weights (query,
+     key and SSM input projections scaled by 0.1, as the CPU tests do) and
+     the same uniforms on the card and on the CPU: loss, grad norm and the
+     updated parameters within the CPU tests' tolerances. (d)
+     ``examples/torch_mvs_lm_training.py`` and ``examples/torch_quickstart.py``
+     run on the card with their defaults in subprocesses and exit 0. The
+     phase launches none of the six kernels in this process (counted from
+     zero and printed; the quickstart's subprocess is not counted).
 
 The streaming and sampled fits' device-memory peaks above their starts must
 stay within the budget their policy decided under (phases 6 and 6b). The card's compute mode must be
@@ -233,6 +256,8 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -613,6 +638,10 @@ def main(argv=None) -> int:
     # arch held against the CPU
     lm_launches = lm_serving_phase(dev)
 
+    # 14. LM training on the card: the same four families at full width
+    # through the entry point, and every arch held against the CPU
+    train_launches = lm_training_phase(dev)
+
     # launches: the paths' runs (phase 10's lossguide fits among them), each
     # counted from zero (per path above);
     # the chunk-shape row of predict_forest counts its chunked launches alone
@@ -622,7 +651,8 @@ def main(argv=None) -> int:
             for path in (in_core_launches, stream_launches, sampled_launches, elastic_launches,
                          serving_launches, lg_core_launches, lg_paged_launches,
                          lg_elastic_launches, grad_launches, serve_codec_launches,
-                         stream_codec_launches, sharded_launches, lm_launches)
+                         stream_codec_launches, sharded_launches, lm_launches,
+                         train_launches)
         )
     i = next(i for i, r in enumerate(results) if r["name"] == "predict_forest")
     results.insert(i + 1, chunk_row)
@@ -3677,6 +3707,356 @@ def lm_serving_phase(dev) -> dict:
     lm_card_vs_cpu(dev)
     counts = read_counts()
     print(f"lm serving path launches: {json.dumps(counts)} ({time.perf_counter() - t0:.1f} s)")
+    return counts
+
+
+# ----------------------------------------------------- phase 14: LM training
+# (a): through the training entry point at full CONFIG in bf16; olmoe-1b-7b
+# (6.9 B parameters, ~12 bytes each with its AdamW state) at full width
+# with fewer layers, through the step functions
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+TRAIN_FULL = (("llama3.2-1b", 8), ("mamba2-130m", 3), ("hymba-1.5b", 3))
+TRAIN_RESUME_STEPS = 2  # mamba2-130m's steps after --resume
+TRAIN_PROFILED_STEPS = 2  # steps traced for the card's busy time
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+# a step's peak over its parameters: bf16 weights and gradients, f32 AdamW
+# moments (12 B a parameter), and the update's new weights and moments (10 B)
+TRAIN_BYTES_PER_PARAM = 22
+TRAIN_HEADROOM = 12 * 2**30  # activations, logits, the update's f32 chunks
+# (c): the CPU tests' holds (tests/test_torch_train.py)
+TRAIN_OC = dict(peak_lr=1e-2, warmup_steps=2, total_steps=40, schedule="wsd")
+TRAIN_TEMPER = 0.1
+TRAIN_PARAM_ATOL = 1e-3 * TRAIN_OC["peak_lr"]
+TRAIN_SMALL_GRAD = 1e-3
+TRAIN_MAX_PAST = 1e-3
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GNORM_RTOL = 1e-4
+
+
+def _finite(run, arch: str) -> None:
+    bad = [m for m in run.metrics if not all(math.isfinite(v) for v in m.values())]
+    if bad or not run.metrics:
+        raise SystemExit(f"{arch}: a training step gave a non-finite metric: {bad[:1]}")
+
+
+def _train_busy_ms(state, batch: dict, step_fn, uniforms=None) -> float | None:
+    """The card's busy ms a step from a `torch.profiler` trace of
+    TRAIN_PROFILED_STEPS steps (device activities summed, one stream), None
+    where the trace holds no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n = TRAIN_PROFILED_STEPS
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            args = (state, batch) if uniforms is None else (state, batch, uniforms)
+            state, metrics = step_fn(*args)
+            float(metrics["loss"])
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in device) / 1e3 / n if device else None
+
+
+def _train_report(label: str, cfg, n: int, step_s: list, peak: int, busy_ms) -> None:
+    """The printed line of a (a) run: ``n`` parameters, each step's host
+    seconds, the peak device bytes and the card's busy ms a step. The FLOP
+    bound counts the parameters a token meets (a MoE token its top-k
+    experts): forward, the remat recompute and a backward of twice the
+    forward are 8 FLOPs a parameter a token."""
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = step_s[1:] or step_s
+    step_ms = sorted(steady)[len(steady) // 2] * 1e3
+    active = cfg.active_param_count()
+    bound_ms = 8 * active * tokens / BF16_FLOPS_PER_S * 1e3
+    busy = (f"device_busy_ms={busy_ms:.3f} a step (profiler, {TRAIN_PROFILED_STEPS} steps) "
+            f"device_busy_share={busy_ms / step_ms:.3f}" if busy_ms is not None
+            else "device_busy_ms=not measured (no device activity in the profiler's trace)")
+    print(f"lm train {label}: params={n} batch={TRAIN_BATCH} seq={TRAIN_SEQ} "
+          f"first_step_ms={step_s[0] * 1e3:.1f} step_ms={step_ms:.1f} (median of steps "
+          f"2-{len(step_s)}) tok_per_s={tokens / step_ms * 1e3:.0f} peak_device_bytes={peak} "
+          f"flop_bound_ms={bound_ms:.3f} (8 x {active} active params x {tokens} tokens over "
+          f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16) step/bound={step_ms / bound_ms:.1f} "
+          + busy)
+
+
+def _synth(cfg, dev, seed: int = 1) -> dict:
+    import numpy as np
+
+    from repro_torch.launch.train import synth_batch
+
+    return synth_batch(cfg, np.random.default_rng(seed), TRAIN_BATCH, TRAIN_SEQ, dev)
+
+
+def lm_train_full(dev, arch: str, steps: int, ckpt_root: str) -> None:
+    """14 (a) for one arch, through the entry point (full CONFIG, bf16)."""
+    import torch
+
+    from repro_torch.launch import train as train_cmd
+    from repro_torch.models.transformer import param_count
+    from repro_torch.train.checkpoint import restore_checkpoint
+    from repro_torch.train.optimizer import OptConfig, tree_leaves
+    from repro_torch.train.train_step import TrainConfig, make_mvs_train_step, make_train_step
+
+    base = ["--arch", arch, "--full", "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--device", str(dev)]
+    ckpt = os.path.join(ckpt_root, arch) if arch == "mamba2-130m" else None
+    runs = [("", [])]
+    if arch == "llama3.2-1b":
+        runs.append((" mvs f=0.5", ["--mvs-f", "0.5"]))
+    for label, extra in runs:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        argv = base + ["--steps", str(steps)] + extra + (["--ckpt-dir", ckpt] if ckpt else [])
+        run = train_cmd.main(argv)
+        peak = torch.cuda.max_memory_allocated(dev)
+        _finite(run, arch)
+        if run.cfg.dtype != "bfloat16":
+            raise SystemExit(f"{arch}: trained in {run.cfg.dtype}, not bf16")
+        losses = [round(m["loss"], 4) for m in run.metrics]
+        line = f"  {arch}{label}: losses {losses}, grad norms " + str(
+            [round(m["grad_norm"], 3) for m in run.metrics])
+        uniforms = None
+        if extra:
+            # Poisson sampling may keep no sequence of a batch in a step (its
+            # loss is then 0): each step's fraction lies in [0, 1], the run's in (0, 1]
+            kept = [m["kept"] for m in run.metrics]
+            if not (all(0.0 <= k <= 1.0 for k in kept) and 0.0 < sum(kept) / len(kept) <= 1.0):
+                raise SystemExit(f"{arch}: MVS kept fractions {kept} outside [0, 1], or "
+                                 f"their mean outside (0, 1]")
+            line += f", kept {kept} (mean {sum(kept) / len(kept):.3f})"
+        print(line)
+        oc = OptConfig(peak_lr=1e-3, warmup_steps=max(steps // 10, 1), total_steps=steps)
+        batch = _synth(run.cfg, dev)
+        if extra:
+            step_fn = make_mvs_train_step(run.cfg, oc, TrainConfig(mvs_f=0.5))
+            uniforms = torch.rand(TRAIN_BATCH, generator=torch.Generator(device=dev)
+                                  .manual_seed(5), device=dev)
+        else:
+            step_fn = make_train_step(run.cfg, oc)
+        busy = _train_busy_ms(run.state, batch, step_fn, uniforms)
+        _train_report(f"{arch}{label}", run.cfg, param_count(run.state.params), run.step_s, peak, busy)
+        if ckpt:
+            # the checkpoint restores the state the run ended with, bit for bit
+            restored, at = restore_checkpoint(ckpt, run.state)
+            same = at == steps and all(
+                a.dtype == b.dtype and torch.equal(a, b)
+                for a, b in zip(tree_leaves(tuple(run.state)), tree_leaves(tuple(restored))))
+            nbytes = os.path.getsize(os.path.join(ckpt, "ckpt.npz"))
+            if not same:
+                raise SystemExit(f"{arch}: the restored state differs from the saved one")
+            del restored
+            later = train_cmd.main(base + ["--steps", str(steps + TRAIN_RESUME_STEPS),
+                                           "--ckpt-dir", ckpt, "--resume"])
+            _finite(later, arch)
+            if later.start != steps or len(later.metrics) != TRAIN_RESUME_STEPS:
+                raise SystemExit(f"{arch}: resume started at {later.start} and ran "
+                                 f"{len(later.metrics)} steps")
+            print(f"  {arch}: checkpoint of {nbytes} B at step {steps} restored bit for bit; "
+                  f"--resume ran steps {steps}-{steps + TRAIN_RESUME_STEPS - 1}, losses "
+                  f"{[round(m['loss'], 4) for m in later.metrics]}")
+            del later
+        del run, step_fn, batch
+        torch.cuda.empty_cache()
+
+
+def lm_train_olmoe(dev, steps: int = 3) -> None:
+    """14 (a) for olmoe-1b-7b: its full width, its depth cut to fit the card."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models.transformer import param_count
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    full = get_config("olmoe-1b-7b")
+    per_layer = (dataclasses.replace(full, n_layers=2).param_count()
+                 - dataclasses.replace(full, n_layers=1).param_count())
+    outside = dataclasses.replace(full, n_layers=1).param_count() - per_layer
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks count as used
+    free, total = torch.cuda.mem_get_info(dev)
+    room = min(free, total) - TRAIN_HEADROOM
+    depth = max(1, min(full.n_layers, (room // TRAIN_BYTES_PER_PARAM - outside) // per_layer))
+    cfg = dataclasses.replace(full, n_layers=int(depth))
+    print(f"  olmoe-1b-7b: full width (d_model {cfg.d_model}, {cfg.n_experts} experts, "
+          f"top-{cfg.top_k}) at {depth} of {full.n_layers} layers ({cfg.param_count()} of "
+          f"{full.param_count()} parameters; {TRAIN_BYTES_PER_PARAM} B a parameter at the "
+          f"update's peak, {free} B free of {total})")
+    oc = OptConfig(peak_lr=1e-3, warmup_steps=1, total_steps=steps)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = init_state(cfg, oc, torch.Generator(device=dev).manual_seed(0), dev)
+    step = make_train_step(cfg, oc)
+    rng = np.random.default_rng(0)
+    metrics, step_s = [], []
+    for _ in range(steps):
+        batch = synth_batch(cfg, rng, TRAIN_BATCH, TRAIN_SEQ, dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(math.isfinite(v) for m in metrics for v in m.values()):
+        raise SystemExit(f"olmoe-1b-7b: a non-finite metric: {metrics}")
+    print(f"  olmoe-1b-7b x{depth}: losses {[round(m['loss'], 4) for m in metrics]}, "
+          f"moe_aux {[round(m['moe_aux'], 4) for m in metrics]}, grad norms "
+          f"{[round(m['grad_norm'], 3) for m in metrics]}")
+    n = param_count(state.params)
+    # the trace's steps make new states: hand it the only reference to this
+    # one, so that two states at most are alive at once (the byte budget above)
+    held = [state]
+    del state
+    busy = _train_busy_ms(held.pop(), _synth(cfg, dev), step)
+    _train_report(f"olmoe-1b-7b x{depth} layers", cfg, n, step_s, peak, busy)
+    del step
+    torch.cuda.empty_cache()
+
+
+def lm_memorise(dev, steps: int = 20) -> None:
+    """14 (b): one fixed batch, llama3.2-1b REDUCED: the loss must fall."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    cfg = get_config("llama3.2-1b", reduced=True)
+    oc = OptConfig(**TRAIN_OC)
+    state = init_state(cfg, oc, torch.Generator(device=dev).manual_seed(0), dev)
+    batch = {"tokens": torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (8, 32))).to(dev)}
+    step = make_train_step(cfg, oc)
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise SystemExit(f"memorisation: the loss did not fall: {losses}")
+    print(f"lm train memorisation (llama3.2-1b REDUCED, one batch of 8 x 32, {steps} steps): "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+
+
+def _tempered_leaves(params: dict) -> dict:
+    for stack in ("blocks", "dense_blocks"):
+        for w in ("wq", "wk", "in_proj"):
+            if w in params.get(stack, {}):
+                params[stack][w] = params[stack][w] * TRAIN_TEMPER
+    return params
+
+
+def lm_train_card_vs_cpu(dev) -> None:
+    """14 (c): one train step and one MVS step of every REDUCED arch (f32) on
+    the card and on the CPU from the same weights and uniforms."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import LM_ARCHS, get_config
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models.transformer import _leaves, init_params
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+    from repro_torch.train.train_step import (
+        TrainConfig,
+        TrainState,
+        make_mvs_train_step,
+        make_train_step,
+    )
+
+    cpu = torch.device("cpu")
+    oc = OptConfig(**TRAIN_OC)
+    worst = {"loss": 0.0, "grad_norm": 0.0, "param": 0.0}
+    n_past = n_all = runs = 0
+    for arch in LM_ARCHS:
+        cfg = get_config(arch, reduced=True)
+        params = _tempered_leaves(init_params(cfg, torch.Generator().manual_seed(0), cpu))
+        host = synth_batch(cfg, np.random.default_rng(2), 4, 24, cpu)
+        kinds = [("step", make_train_step(cfg, oc), None)]
+        if not cfg.n_codebooks and cfg.frontend != "vision":
+            u = torch.rand(4, generator=torch.Generator().manual_seed(3))
+            kinds.append(("mvs", make_mvs_train_step(cfg, oc, TrainConfig(mvs_f=0.5)), u))
+        for kind, step, u in kinds:
+            out = []
+            for d in (cpu, dev):
+                p = _tree_to(params, d)
+                state = TrainState(p, adamw_init(p, oc))
+                batch = {k: v.to(d) for k, v in host.items()}
+                new, m = step(state, batch) if u is None else step(state, batch, u.to(d))
+                out.append((new, {k: float(v) for k, v in m.items()}))
+            (want, wm), (got, gm) = out
+            for key, rtol in (("loss", TRAIN_LOSS_RTOL), ("grad_norm", TRAIN_GNORM_RTOL)):
+                err = abs(gm[key] - wm[key]) / abs(wm[key])
+                worst[key] = max(worst[key], err)
+                if err > rtol:
+                    raise SystemExit(f"{arch} {kind}: card {key} {gm[key]} vs CPU {wm[key]}")
+            if gm.get("kept") != wm.get("kept"):
+                raise SystemExit(f"{arch} mvs: kept {gm.get('kept')} vs CPU {wm.get('kept')}")
+            m_want = dict(_leaves(want.opt.m))
+            for key, p_want in _leaves(want.params):
+                g = (m_want[key].double() / (1 - oc.b1)).abs()  # step 1: m = (1 - b1) g
+                small = g < TRAIN_SMALL_GRAD * g.max()
+                diff = (dict(_leaves(got.params))[key].cpu().double() - p_want.double()).abs()
+                past = diff > TRAIN_PARAM_ATOL
+                worst["param"] = max(worst["param"], float(diff[~small].max()) if
+                                     bool((~small).any()) else 0.0)
+                if bool((past & ~small).any()) or float(diff.max()) > 2 * wm["lr"]:
+                    raise SystemExit(f"{arch} {kind}: {key} on the card differs from the CPU "
+                                     f"by {float(diff.max()):.3e}")
+                n_past += int(past.sum())
+                n_all += diff.numel()
+            runs += 1
+            del out, want, got
+    if n_past > TRAIN_MAX_PAST * n_all:
+        raise SystemExit(f"lm train card vs cpu: {n_past} of {n_all} parameters past "
+                         f"{TRAIN_PARAM_ATOL}")
+    print(f"lm train card vs cpu: {len(LM_ARCHS)} REDUCED archs at f32, {runs} steps (train and "
+          f"MVS): loss within rtol {TRAIN_LOSS_RTOL} (max {worst['loss']:.3e}), grad norm "
+          f"within {TRAIN_GNORM_RTOL} (max {worst['grad_norm']:.3e}), updated parameters with "
+          f"sizeable gradients within {TRAIN_PARAM_ATOL:g} (max {worst['param']:.3e}); "
+          f"{n_past} of {n_all} small-gradient elements past it")
+
+
+def lm_train_examples() -> None:
+    """14 (d): the LM and GBDT quickstart examples on the card, defaults."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for script in ("examples/torch_mvs_lm_training.py", "examples/torch_quickstart.py"):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, str(ROOT / script)], capture_output=True,
+                             text=True, env=env, cwd=ROOT, timeout=300)
+        if out.returncode != 0:
+            raise SystemExit(f"{script} exited {out.returncode}: {out.stderr[-2000:]}")
+        tail = " | ".join(out.stdout.strip().splitlines()[-2:])
+        print(f"example {script}: exit 0 in {time.perf_counter() - t0:.1f} s: {tail}")
+
+
+def lm_training_phase(dev) -> dict:
+    """Phase 14: LM training on the card. Returns its launch counts of the
+    port's kernels (none: the products, the loss and AdamW are torch ops,
+    as the reference's are jnp)."""
+    import torch
+
+    from repro_torch.kernels import launch_counts as read_counts
+    from repro_torch.kernels import reset_launch_counts as zero_counts
+
+    # (c) holds f32 steps against the CPU: full-precision f32 matmuls, which
+    # are PyTorch's default; checked, not set
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise SystemExit("TF32 matmuls are enabled; the f32 card-vs-CPU hold needs them off")
+    t0 = time.perf_counter()
+    zero_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_root:
+        for arch, steps in TRAIN_FULL:
+            lm_train_full(dev, arch, steps, ckpt_root)
+    lm_train_olmoe(dev)
+    lm_memorise(dev)
+    lm_train_card_vs_cpu(dev)
+    counts = read_counts()
+    lm_train_examples()
+    print(f"lm training path launches: {json.dumps(counts)} ({time.perf_counter() - t0:.1f} s)")
     return counts
 
 

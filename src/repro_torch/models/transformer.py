@@ -1,13 +1,17 @@
-"""Decoder LM assembly for every assigned family: init, forward, logits.
+"""Decoder LM assembly for every assigned family: init, forward, logits and
+the training loss.
 
-Counterpart of the serving half of `repro.models.transformer` (``lm_loss``
-comes with training). Layer weights are STACKED along a leading
-(n_layers,) axis, the reference's layout, so the reference's parameter tree
-carries over leaf for leaf (`params_from_numpy`); the reference's
-``lax.scan`` over that axis is a Python loop over the layer index here.
-MoE configs with ``first_k_dense`` use two stacks. The reference's sharding
-constraints are no-ops without a mesh, and the port has no mesh for these
-models yet, so they are left out.
+Counterpart of `repro.models.transformer`. Layer weights are STACKED along
+a leading (n_layers,) axis, the reference's layout, so the reference's
+parameter tree carries over leaf for leaf (`params_from_numpy`); the
+reference's ``lax.scan`` over that axis is a Python loop over the layer
+index here. MoE configs with ``first_k_dense`` use two stacks. With
+``remat`` each block call runs under `torch.utils.checkpoint` (the
+reference's ``jax.checkpoint`` of the layer body): the backward recomputes a
+layer's activations from its input instead of keeping them, which changes
+memory, never values. The reference's sharding constraints are no-ops
+without a mesh, and the port has no mesh for these models yet, so they are
+left out.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -311,26 +316,36 @@ def hybrid_block(bp, cfg: ModelConfig, x, positions, window):
 # ===========================================================================
 
 
-def forward(params: dict, cfg: ModelConfig, batch: dict) -> tuple[Tensor, Tensor]:
+def _call(block, remat: bool, *args):
+    """One block call, under a non-reentrant checkpoint with ``remat``."""
+    if remat:
+        return checkpoint(block, *args, use_reentrant=False)
+    return block(*args)
+
+
+def forward(params: dict, cfg: ModelConfig, batch: dict,
+            remat: bool = False) -> tuple[Tensor, Tensor]:
     """Forward pass over whole sequences. Returns (logits, moe_aux_loss).
 
-    logits: (B, S, V) — or (B, S, K, V) for codebook (audio) models."""
+    logits: (B, S, V) — or (B, S, K, V) for codebook (audio) models. With
+    ``remat`` each block is checkpointed (training; the loss's default)."""
     x, positions = embed_inputs(params, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     blocks = params["blocks"]
 
     if cfg.family == "moe":
         for i in range(cfg.first_k_dense):
-            x = dense_block(layer_slice(params["dense_blocks"], i), cfg, x, positions,
-                            cfg.attn_window(i))
+            x = _call(dense_block, remat, layer_slice(params["dense_blocks"], i), cfg, x,
+                      positions, cfg.attn_window(i))
         for i in range(cfg.n_layers - cfg.first_k_dense):
-            x, a = moe_block(layer_slice(blocks, i), cfg, x, positions,
-                             cfg.attn_window(i + cfg.first_k_dense))
+            x, a = _call(moe_block, remat, layer_slice(blocks, i), cfg, x, positions,
+                         cfg.attn_window(i + cfg.first_k_dense))
             aux = aux + a
     else:
         block = {"dense": dense_block, "ssm": ssm_block, "hybrid": hybrid_block}[cfg.family]
         for i in range(cfg.n_layers):
-            x = block(layer_slice(blocks, i), cfg, x, positions, cfg.attn_window(i))
+            x = _call(block, remat, layer_slice(blocks, i), cfg, x, positions,
+                      cfg.attn_window(i))
 
     x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
     return project_logits(params, cfg, x), aux
@@ -341,3 +356,35 @@ def project_logits(params: dict, cfg: ModelConfig, x: Tensor) -> Tensor:
         return torch.einsum("bsd,kdv->bskv", x, params["codebook_head"].to(x.dtype))
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return torch.einsum("bsd,dv->bsv", x, head.to(x.dtype))
+
+
+def _token_nll(logits: Tensor, labels: Tensor) -> Tensor:
+    """-log softmax(logits)[label], the log-softmax in f32."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(lp, -1, labels[..., None].long())[..., 0]
+
+
+def next_token_nll(logits: Tensor, cfg: ModelConfig, batch: dict) -> Tensor:
+    """Each position's next-token NLL: (B, S-1, K) for codebook models, else
+    (B, S-1) over the text positions (a vision model's patch positions come
+    first and predict nothing)."""
+    if cfg.n_codebooks:
+        return _token_nll(logits[:, :-1], batch["codes"][:, 1:])
+    if cfg.frontend == "vision":
+        logits = logits[:, batch["patch_embeds"].shape[1]:]
+    return _token_nll(logits[:, :-1], batch["tokens"][:, 1:])
+
+
+def lm_loss(params: dict, cfg: ModelConfig, batch: dict, remat: bool = True):
+    """Next-token cross entropy (+0.01 * MoE aux). Returns (loss, metrics):
+    the mean NLL over every predicted position (codebooks included), or over
+    the positions ``batch["loss_mask"]`` keeps (text models)."""
+    logits, aux = forward(params, cfg, batch, remat=remat)
+    nll = next_token_nll(logits, cfg, batch)
+    mask = None if cfg.n_codebooks else batch.get("loss_mask")
+    if mask is not None:
+        mask = mask[:, 1:].to(nll.dtype)
+        loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    else:
+        loss = torch.mean(nll)
+    return loss + 0.01 * aux, {"nll": loss, "moe_aux": aux}
