@@ -241,6 +241,24 @@ Phases, each of which fails the run on error:
      run on the card with their defaults in subprocesses and exit 0. The
      phase launches none of the six kernels in this process (counted from
      zero and printed; the quickstart's subprocess is not counted).
+  15. The dry run (`repro_torch.launch.dryrun`, after phase 14): (a) its
+     ``main`` on the 16 x 16 production mesh of a fake 256-rank world, on
+     the host, for llama3.2-1b x {train_4k, prefill_32k, decode_32k},
+     olmoe-1b-7b x train_4k, llava-next-34b x decode_32k, mamba2-130m x
+     long_500k and xgb-paper x boost_1m, one subprocess a cell, all started
+     together: each cell must reach ``status: ok``, and a line a cell
+     prints its dominant term, the compute / memory / collective seconds on
+     H100 constants, the useful share, the per-device peak and the seconds
+     it took. (b) On a world of one over a 1 x 1 mesh of the card, the dry
+     run of llama3.2-1b train at batch 4 x 512 in bf16 (phase 14's shape),
+     mamba2-130m train at the same shape and llama3.2-1b decode at batch 4
+     against a 48-token paged cache (phase 13's shape), then the same steps
+     run for real on the card from seeded generators: the FLOPs
+     (`FlopCounterMode` around the card's step) must equal the dry run's,
+     and the card's peak (``max_memory_allocated`` above the start, the
+     step's inputs included) must lie within 25% of the dry run's peak
+     estimate; the measured ms a step over the roofline's max(compute,
+     memory) s is printed. It launches none of the six kernels.
 
 The streaming and sampled fits' device-memory peaks above their starts must
 stay within the budget their policy decided under (phases 6 and 6b). The card's compute mode must be
@@ -642,6 +660,10 @@ def main(argv=None) -> int:
     # through the entry point, and every arch held against the CPU
     train_launches = lm_training_phase(dev)
 
+    # 15. the dry run: production cells on the host, and three steps whose
+    # dry-run FLOPs and peak are held to the card's
+    dryrun_launches = dryrun_phase(dev)
+
     # launches: the paths' runs (phase 10's lossguide fits among them), each
     # counted from zero (per path above);
     # the chunk-shape row of predict_forest counts its chunked launches alone
@@ -652,7 +674,7 @@ def main(argv=None) -> int:
                          serving_launches, lg_core_launches, lg_paged_launches,
                          lg_elastic_launches, grad_launches, serve_codec_launches,
                          stream_codec_launches, sharded_launches, lm_launches,
-                         train_launches)
+                         train_launches, dryrun_launches)
         )
     i = next(i for i, r in enumerate(results) if r["name"] == "predict_forest")
     results.insert(i + 1, chunk_row)
@@ -4057,6 +4079,179 @@ def lm_training_phase(dev) -> dict:
     counts = read_counts()
     lm_train_examples()
     print(f"lm training path launches: {json.dumps(counts)} ({time.perf_counter() - t0:.1f} s)")
+    return counts
+
+
+# ------------------------------------------------------- phase 15: dry run
+DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("llama3.2-1b", "prefill_32k"),
+                ("llama3.2-1b", "decode_32k"), ("olmoe-1b-7b", "train_4k"),
+                ("llava-next-34b", "decode_32k"), ("mamba2-130m", "long_500k"),
+                ("xgb-paper", "boost_1m"))
+DRYRUN_CELL_TIMEOUT_S = 600
+DRYRUN_PEAK_RTOL = 0.25  # the dry run's peak estimate against the card's
+DRYRUN_TIMED_STEPS = 3
+# (arch, kind, seq, batch): phase 14's train shape, phase 13's decode shape
+DRYRUN_CASES = (("llama3.2-1b", "train", TRAIN_SEQ, TRAIN_BATCH),
+                ("mamba2-130m", "train", TRAIN_SEQ, TRAIN_BATCH),
+                ("llama3.2-1b", "decode", 48, 4))
+
+
+def _dryrun_cells_start(out: str) -> list:
+    """15 (a): one `launch.dryrun` process a cell, all started together."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+               "--shape", shape, "--single-pod", "--out", out]
+        procs.append((arch, shape, subprocess.Popen(
+            cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    return procs
+
+
+def _dryrun_cells_finish(procs: list, out: str, t0: float) -> None:
+    try:
+        for arch, shape, proc in procs:
+            log, _ = proc.communicate(
+                timeout=max(1.0, t0 + DRYRUN_CELL_TIMEOUT_S - time.perf_counter()))
+            path = Path(out) / "16x16" / f"{arch}__{shape}.json"
+            if proc.returncode != 0 or not path.exists():
+                raise SystemExit(f"dry run {arch} x {shape} exited {proc.returncode}: "
+                                 f"{log[-2000:]}")
+            r = json.loads(path.read_text())
+            if r["status"] != "ok":
+                raise SystemExit(f"dry run {arch} x {shape}: {r['error']}\n"
+                                 f"{r.get('traceback', '')}")
+            useful = "null" if r["useful_ratio"] is None else f"{r['useful_ratio']:.4f}"
+            print(f"dryrun 16x16 {arch} x {shape}: ok dominant={r['dominant']} "
+                  f"compute_s={r['compute_s']:.6f} memory_s={r['memory_s']:.6f} "
+                  f"collective_s={r['collective_s']:.6f} useful={useful} "
+                  f"peak_GiB={r['memory_stats']['peak_estimate_bytes'] / 2**30:.3f} "
+                  f"fits_one_card={r['fits_one_card']} compile_s={r['compile_seconds']} "
+                  f"(H100 SXM constants, modelled)")
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _dryrun_real_step(dev, cfg, kind: str, seq: int, batch: int):
+    """The step the dry run traced, from seeded generators on the card:
+    returns ``step()`` (its inputs made, nothing run)."""
+    import torch
+
+    from repro_torch.models.serve import decode_step, init_cache
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+    from repro_torch.train.train_step import TrainConfig, TrainState, make_train_step
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    params = init_params(cfg, gen, dev)
+    if kind == "train":
+        oc = OptConfig(schedule="wsd" if cfg.name == "minicpm-2b" else "cosine")
+        box = [TrainState(params, adamw_init(params, oc))]
+        tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device=dev,
+                               dtype=torch.int32)
+        step_fn = make_train_step(cfg, oc, TrainConfig(remat=True))
+
+        def step():
+            box[0], metrics = step_fn(box[0], {"tokens": tokens})
+            return metrics["loss"]
+        return step
+    cache = init_cache(cfg, batch, seq, paged=cfg.family in ("dense", "moe"), device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (batch,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    box = [cache]
+
+    def step():
+        with torch.no_grad():
+            logits, box[0] = decode_step(params, cfg, tokens, box[0])
+        return logits
+    return step
+
+
+def dryrun_card_case(dev, arch: str, kind: str, seq: int, batch: int) -> None:
+    """15 (b) for one case: the dry run on a 1 x 1 mesh of the card, then
+    the same step on the card."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh, mesh_axes
+    from repro_torch.roofline import analyze_traced
+
+    cfg = get_config(arch)
+    shape = ShapeSpec(f"{kind}_{batch}x{seq}", kind, seq, batch)
+    with dryrun.fake_world(1):
+        mesh = make_host_mesh(1, 1, device_type="cuda")
+        cost = dryrun.trace_lm(cfg, shape, mesh, mesh_axes(False))
+    tokens = batch * seq if kind == "train" else batch
+    rep = analyze_traced(cost, arch=arch, shape=shape.name, mesh_name="1x1", chips=1,
+                         n_active_params=cfg.active_param_count(), tokens=tokens,
+                         kind="train" if kind == "train" else "serve")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    step = _dryrun_real_step(dev, cfg, kind, seq, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counter = FlopCounterMode(display=False)
+    with counter:
+        out = step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    if not bool(torch.isfinite(out.float()).all()):
+        raise SystemExit(f"dry-run case {arch} {kind}: the card's step is not finite")
+    flops = counter.get_total_flops()
+    ms = _time_ms(step, DRYRUN_TIMED_STEPS, warmup=0)
+    bound_s = max(rep.compute_s, rep.memory_s)
+    err = abs(cost.peak - peak) / peak
+    print(f"dryrun 1x1 {arch} {kind} {batch}x{seq}: flops dry={cost.flops} card={flops} "
+          f"peak dry={cost.peak} card={peak} (rel {err:.4f}, bound {DRYRUN_PEAK_RTOL}) "
+          f"step_ms={ms:.3f} (mean of {DRYRUN_TIMED_STEPS}) roofline_ms="
+          f"{bound_s * 1e3:.3f} (compute {rep.compute_s * 1e3:.3f}, memory "
+          f"{rep.memory_s * 1e3:.3f}) ratio={ms / (bound_s * 1e3):.2f} "
+          f"bytes_dry={cost.bytes}")
+    if flops != cost.flops:
+        raise SystemExit(f"dry-run case {arch} {kind}: dry-run FLOPs {cost.flops} != the "
+                         f"card's {flops}")
+    if err > DRYRUN_PEAK_RTOL:
+        raise SystemExit(f"dry-run case {arch} {kind}: peak estimate {cost.peak} B is "
+                         f"{err:.1%} from the card's {peak} B")
+    del step, out
+    torch.cuda.empty_cache()
+
+
+def dryrun_phase(dev) -> dict:
+    """Phase 15: the dry run. Returns its launch counts of the port's
+    kernels (none: meta shards and torch ops, the GBDT cell's plain
+    versions on the host)."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import launch_counts as read_counts
+    from repro_torch.kernels import reset_launch_counts as zero_counts
+
+    if dist.is_initialized():
+        raise SystemExit("phase 15 needs no process group in this process")
+    t0 = time.perf_counter()
+    zero_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as out:
+        procs = _dryrun_cells_start(out)
+        try:
+            for case in DRYRUN_CASES:
+                dryrun_card_case(dev, *case)
+        except BaseException:
+            for _, _, proc in procs:
+                proc.kill()
+                proc.wait()
+            raise
+        _dryrun_cells_finish(procs, out, t0)
+    counts = read_counts()
+    if any(counts.values()):
+        raise SystemExit(f"the dry run launched a kernel: {counts}")
+    print(f"dry run path launches: {json.dumps(counts)} ({time.perf_counter() - t0:.1f} s)")
     return counts
 
 

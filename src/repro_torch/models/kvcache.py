@@ -11,13 +11,19 @@ same tensors, so a decode step does not copy the whole cache. Token counts
 the writes need are Python ints on the host. Where the reference's
 ``dynamic_update_slice`` clamps a start past the end (and so silently
 overwrites the last slots), the port raises: a write past ``max_len`` (or
-past a paged pool) is an error here.
+past a paged pool) is an error here. Under a mesh (`repro_torch.sharding`)
+the caches are DTensors split over batch and head_dim, and every write and
+page gather runs on the local shards.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.sharding.rules import P as SpecP
+from repro_torch.sharding.rules import assign, constrain, placements, spec_of
 
 Tensor = torch.Tensor
 
@@ -42,8 +48,9 @@ class KVCache(NamedTuple):
         if end > self.k.shape[2]:
             raise ValueError(f"KV cache write of positions {self.length}..{end - 1} past its "
                              f"max_len {self.k.shape[2]}")
-        self.k[layer_idx, :, self.length : end] = layer_k.to(self.k.dtype)
-        self.v[layer_idx, :, self.length : end] = layer_v.to(self.v.dtype)
+        at = (layer_idx, slice(None), slice(self.length, end))
+        assign(self.k, at, layer_k.to(self.k.dtype))
+        assign(self.v, at, layer_v.to(self.v.dtype))
         return self
 
     def advanced(self, n: int) -> "KVCache":
@@ -124,6 +131,11 @@ class PagedKVCache(NamedTuple):
 
     def gather_layer(self, layer_idx: int) -> tuple[Tensor, Tensor]:
         """Materialize (B, max_pages*page, KH, hd) views for one layer."""
+        if isinstance(self.k_pages, DTensor):
+            mesh = self.k_pages.device_mesh
+            pl = placements(self._token_spec(), mesh)
+            return tuple(DTensor.from_local(t, mesh, pl, run_check=False)
+                         for t in self._local().gather_layer(layer_idx))
         kl = self.k_pages[layer_idx]  # (B, pool, page, KH, hd)
         vl = self.v_pages[layer_idx]
         B, MP = self.page_table.shape
@@ -137,6 +149,11 @@ class PagedKVCache(NamedTuple):
 
     def write_token(self, layer_k: Tensor, layer_v: Tensor, layer_idx: int) -> "PagedKVCache":
         """Write one token (B, 1, KH, hd) at each sequence's current position, in place."""
+        if isinstance(self.k_pages, DTensor):
+            spec = self._token_spec()
+            self._local().write_token(constrain(layer_k, spec).to_local(),
+                                      constrain(layer_v, spec).to_local(), layer_idx)
+            return self
         P = self.page_size
         if self.max_length >= self.page_table.shape[1] * P:
             raise ValueError(f"paged KV cache write at position {self.max_length} past its "
@@ -149,6 +166,22 @@ class PagedKVCache(NamedTuple):
         self.k_pages[layer_idx, rows, page_ids, offset] = layer_k[:, 0].to(self.k_pages.dtype)
         self.v_pages[layer_idx, rows, page_ids, offset] = layer_v[:, 0].to(self.v_pages.dtype)
         return self
+
+    def _token_spec(self) -> SpecP:
+        """The layout of a (B, ., KH, hd) slice of the sharded pages."""
+        spec = spec_of(self.k_pages)  # (L, B, pool, page, KH, hd)
+        if any(spec[i] for i in (0, 2, 3, 4)) or spec_of(self.page_table)[1]:
+            raise NotImplementedError(f"paged cache sharded as {spec}: only batch and "
+                                      "head_dim may be split")
+        return SpecP(spec[1], None, None, spec[5])
+
+    def _local(self) -> "PagedKVCache":
+        """This rank's shard of a sharded cache, over the same storage: the
+        pages, the page table and the lengths are split alike over batch,
+        so each rank's rows address its own pools."""
+        return PagedKVCache(self.k_pages.to_local(), self.v_pages.to_local(),
+                            self.page_table.to_local(), self.lengths.to_local(),
+                            self.max_length)
 
     def advanced(self, n: int = 1) -> "PagedKVCache":
         return PagedKVCache(self.k_pages, self.v_pages, self.page_table, self.lengths + n,

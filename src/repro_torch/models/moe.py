@@ -21,6 +21,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.rules import (
+    P,
+    activation_spec,
+    constrain_act,
+    current_mesh_axes,
+    fit_spec,
+    on_shards,
+)
+
 Tensor = torch.Tensor
 
 
@@ -55,19 +64,11 @@ def dispatch_indices(
     return slot, keep
 
 
-def moe_block(
-    x: Tensor,  # (G, N, d) grouped tokens (group = sequence)
-    router_w: Tensor,  # (d, E)
-    w_gate: Tensor,  # (E, d, ff)
-    w_up: Tensor,  # (E, d, ff)
-    w_down: Tensor,  # (E, ff, d)
-    top_k: int,
-    capacity_factor: float,
-) -> tuple[Tensor, Tensor]:
-    """Returns (output (G, N, d), aux load-balancing loss scalar)."""
+def _dispatch(x: Tensor, router_w: Tensor, top_k: int, C: int):
+    """Route each group's tokens and scatter them into the expert buffers:
+    (buf (G, E, C, d), logits, ids, weights, slot, keep)."""
     G, N, d = x.shape
     E = router_w.shape[1]
-    C = moe_capacity(N, E, top_k, capacity_factor)
     logits = torch.einsum("gnd,de->gne", x, router_w.to(x.dtype)).float()
     ids, weights = route(logits, top_k)  # (G,N,k)
 
@@ -80,21 +81,65 @@ def moe_block(
     # add into zeros does; every dropped assignment lands on the discarded extra row
     buf = torch.zeros((G, E * C + 1, d), dtype=x.dtype, device=x.device)
     buf.scatter_(1, slot[..., None].expand(G, N * top_k, d), x_rep)
-    buf = buf[:, : E * C].reshape(G, E, C, d)
+    return buf[:, : E * C].reshape(G, E, C, d), logits, ids, weights, slot, keep
 
-    # expert SwiGLU (grouped matmuls)
-    g = torch.einsum("gecd,edf->gecf", buf, w_gate.to(x.dtype))
-    u = torch.einsum("gecd,edf->gecf", buf, w_up.to(x.dtype))
-    y = torch.einsum("gecf,efd->gecd", F.silu(g) * u, w_down.to(x.dtype))
-    y = y.reshape(G, E * C, d)
+
+def _experts(buf: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor, dtype) -> Tensor:
+    """Every expert's SwiGLU over its buffer: (G, E, C, d) -> (G, E, C, d)."""
+    g = torch.einsum("gecd,edf->gecf", buf, w_gate.to(dtype))
+    u = torch.einsum("gecd,edf->gecf", buf, w_up.to(dtype))
+    return torch.einsum("gecf,efd->gecd", F.silu(g) * u, w_down.to(dtype))
+
+
+def _combine(y: Tensor, slot: Tensor, keep: Tensor, weights: Tensor, top_k: int) -> Tensor:
+    """Each assignment's expert output, router-weighted, summed per token:
+    y (G, E*C, d) -> (G, N, d)."""
+    G, EC, d = y.shape
+    safe_slot = torch.clamp(slot, 0, EC - 1)
+    gathered = torch.gather(y, 1, safe_slot[..., None].expand(G, slot.shape[1], d))
+    gathered = gathered.masked_fill(~keep[..., None], 0)
+    return torch.sum(
+        gathered.reshape(G, -1, top_k, d) * weights[..., None].to(y.dtype), dim=2
+    )
+
+
+def moe_block(
+    x: Tensor,  # (G, N, d) grouped tokens (group = sequence)
+    router_w: Tensor,  # (d, E)
+    w_gate: Tensor,  # (E, d, ff)
+    w_up: Tensor,  # (E, d, ff)
+    w_down: Tensor,  # (E, ff, d)
+    top_k: int,
+    capacity_factor: float,
+) -> tuple[Tensor, Tensor]:
+    """Returns (output (G, N, d), aux load-balancing loss scalar).
+
+    Under a mesh the routing, the scatter into the buffers and the combine
+    run on each rank's groups (groups over the data axes, the rest whole:
+    their sorts, scatters and gathers are per group); the expert matmuls
+    run on the buffers laid out as ``"moe_buf"`` (experts over ``model``),
+    each rank with its experts' whole weights."""
+    G, N, d = x.shape
+    E = router_w.shape[1]
+    C = moe_capacity(N, E, top_k, capacity_factor)
+    ctx = current_mesh_axes()
+    grp = fit_spec(x.shape, P(ctx[1].data)) if ctx else None
+    buf, logits, ids, weights, slot, keep = on_shards(
+        lambda xs, rw: _dispatch(xs, rw, top_k, C), (x, router_w), (grp, P()),
+        (grp,) * 6)
+    buf = constrain_act(buf, "moe_buf")
+
+    # expert SwiGLU (grouped matmuls); under a mesh on each rank's groups
+    # and experts, every expert's weights whole
+    bs = fit_spec(buf.shape, activation_spec("moe_buf", ctx[1])) if ctx else None
+    ws = fit_spec(w_gate.shape, P(ctx[1].model)) if ctx else None
+    y = on_shards(lambda b, wg, wu, wd: _experts(b, wg, wu, wd, x.dtype),
+                  (buf, w_gate, w_up, w_down), (bs, ws, ws, ws), bs)
+    y = constrain_act(y, "moe_buf").reshape(G, E * C, d)
 
     # combine: batched gather of each assignment's output, router-weighted
-    safe_slot = torch.clamp(slot, 0, E * C - 1)
-    gathered = torch.gather(y, 1, safe_slot[..., None].expand(G, N * top_k, d))  # (G, N*k, d)
-    gathered = gathered.masked_fill(~keep[..., None], 0)
-    combined = torch.sum(
-        gathered.reshape(G, N, top_k, d) * weights[..., None].to(x.dtype), dim=2
-    )
+    combined = on_shards(lambda *a: _combine(*a, top_k), (y, slot, keep, weights),
+                         (grp,) * 4, grp)
 
     # Switch-style load-balance aux loss
     probs = torch.softmax(logits, dim=-1)  # (G,N,E)

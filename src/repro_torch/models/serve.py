@@ -10,7 +10,8 @@ Counterpart of `repro.models.serve`. Cache layouts per family:
 
 Caches are written in place (`repro_torch.models.kvcache`); each call
 returns the cache with its token count advanced. Run under
-``torch.inference_mode()``.
+``torch.inference_mode()``. The residual stream takes the reference's
+``"act"`` constraint after every block, a no-op with no mesh set.
 """
 from __future__ import annotations
 
@@ -18,6 +19,9 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as ssm_lib
@@ -25,6 +29,10 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.kvcache import KVCache, PagedKVCache
 from repro_torch.models.transformer import (
     _attention,
+    _c,
+    heads_out,
+    heads_proj,
+    lookup,
     _mlp,
     _moe_ffn,
     _ssm_in,
@@ -33,6 +41,16 @@ from repro_torch.models.transformer import (
     layer_slice,
     model_dtype,
     project_logits,
+)
+
+from repro_torch.sharding.rules import (
+    P,
+    assign,
+    constrain,
+    current_mesh_axes,
+    placements,
+    serve_cache_specs,
+    spec_of,
 )
 
 Tensor = torch.Tensor
@@ -70,9 +88,9 @@ class HybridCaches(NamedTuple):
 
 def _qkv_token(bp_l, cfg: ModelConfig, xn: Tensor, pos: Tensor):
     """q, k, v of one token, roped at ``pos`` ((1,) int tensor)."""
-    q = torch.einsum("bsd,dhk->bshk", xn, bp_l["wq"].to(xn.dtype))
-    k = torch.einsum("bsd,dhk->bshk", xn, bp_l["wk"].to(xn.dtype))
-    v = torch.einsum("bsd,dhk->bshk", xn, bp_l["wv"].to(xn.dtype))
+    q = heads_proj(xn, bp_l["wq"])
+    k = heads_proj(xn, bp_l["wk"])
+    v = heads_proj(xn, bp_l["wv"])
     cos, sin = L.rope_angles(pos, cfg.head_dim, cfg.rope_theta)
     return L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin), v
 
@@ -83,8 +101,18 @@ def _write(k_cache: Tensor, v_cache: Tensor, k: Tensor, v: Tensor, start: int) -
     if end > k_cache.shape[1]:
         raise ValueError(f"KV cache write of positions {start}..{end - 1} past its "
                          f"{k_cache.shape[1]} slots")
-    k_cache[:, start:end] = k.to(k_cache.dtype)
-    v_cache[:, start:end] = v.to(v_cache.dtype)
+    assign(k_cache, (slice(None), slice(start, end)), k.to(k_cache.dtype))
+    assign(v_cache, (slice(None), slice(start, end)), v.to(v_cache.dtype))
+
+
+def _like_cache(q: Tensor, k_cache: Tensor) -> Tensor:
+    """A token's queries (B, 1, H, hd) laid out as a sharded (B, len, KH, hd)
+    cache: batch and head_dim split as the cache splits them, heads whole
+    (the attention splits them into KV groups); ``q`` itself otherwise."""
+    if not isinstance(k_cache, DTensor):
+        return q
+    spec = spec_of(k_cache)
+    return constrain(q, P(spec[0], None, None, spec[3]))
 
 
 def _position(length: int, device) -> Tensor:
@@ -130,12 +158,48 @@ def _embed_tokens(params, cfg: ModelConfig, tokens: Tensor) -> Tensor:
     dtype = model_dtype(cfg)
     if cfg.n_codebooks:
         emb = params["codebook_embed"]
-        return sum(emb[k][tokens[..., k]] for k in range(cfg.n_codebooks)).to(dtype)
-    return params["embed"][tokens].to(dtype)
+        return sum(lookup(emb[k], tokens[..., k]) for k in range(cfg.n_codebooks)).to(dtype)
+    return lookup(params["embed"], tokens).to(dtype)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, paged: bool = False,
                page_size: int = 256, *, device: torch.device):
+    """A zeroed cache of ``batch`` sequences of up to ``max_len`` tokens on
+    ``device``. Under a mesh its tensors are DTensors laid out per
+    `serve_cache_specs`, each rank allocating only its shard."""
+    ctx = current_mesh_axes()
+    if ctx is None:
+        return _init_cache(cfg, batch, max_len, paged, page_size, device)
+    mesh, axes = ctx
+    with FakeTensorMode():  # the global cache's structure and shapes, nothing made
+        meta = _init_cache(cfg, batch, max_len, paged, page_size, torch.device("meta"))
+    specs = serve_cache_specs(meta, mesh, axes, batch)
+
+    def shard(leaf, spec, name):
+        if not isinstance(leaf, Tensor):
+            return leaf
+        pl = placements(spec, mesh)
+        shape, off = compute_local_shape_and_global_offset(leaf.shape, mesh, pl)
+        if name == "page_table":  # every row is arange(max_pages)
+            local = torch.arange(off[1], off[1] + shape[1], dtype=leaf.dtype, device=device)
+            local = local[None].repeat(shape[0], 1)
+        else:
+            local = torch.zeros(shape, dtype=leaf.dtype, device=device)
+        return DTensor.from_local(local, mesh, pl, run_check=False, shape=leaf.shape,
+                                  stride=leaf.stride())
+
+    def walk(tree, spec, name=""):
+        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            return type(tree)(*(walk(t, sp, f) for t, sp, f in zip(tree, spec, tree._fields)))
+        if isinstance(tree, tuple):
+            return tuple(walk(t, sp) for t, sp in zip(tree, spec))
+        return shard(tree, spec, name)
+
+    return walk(meta, specs)
+
+
+def _init_cache(cfg: ModelConfig, batch: int, max_len: int, paged: bool, page_size: int,
+                device: torch.device):
     dtype = model_dtype(cfg)
     if cfg.family == "ssm":
         return SSMServeState.init(cfg, batch, dtype=dtype, device=device)
@@ -204,13 +268,14 @@ def _decode_attn_families(params, cfg: ModelConfig, x, cache):
         else:
             cache.update_layer(k, v, gl)
             kf, vf = cache.k[gl], cache.v[gl]
-        out = L.decode_attention(q, kf, vf, lengths, window=cfg.attn_window(gl))
-        x = x + torch.einsum("bshk,hkd->bsd", out, bp_l["wo"].to(x.dtype))
+        out = L.decode_attention(_like_cache(q, kf), kf, vf, lengths,
+                                 window=cfg.attn_window(gl))
+        x = _c(x + heads_out(out, bp_l["wo"].to(x.dtype)), "act")
         if moe:
             f, _ = _moe_ffn(bp_l, cfg, x)
-            x = x + f
+            x = _c(x + f, "act")
         else:
-            x = x + _mlp(bp_l, cfg, x)
+            x = _c(x + _mlp(bp_l, cfg, x), "act")
     return x, cache.advanced(1)
 
 
@@ -218,9 +283,9 @@ def _decode_ssm(params, cfg: ModelConfig, x, cache: SSMServeState):
     for i in range(cfg.n_layers):
         bp_l = layer_slice(params["blocks"], i)
         y, conv_l, state_l = _ssm_decode_layer(bp_l, cfg, x, cache.conv[i], cache.ssm[i])
-        x = x + y
-        cache.conv[i] = conv_l
-        cache.ssm[i] = state_l
+        x = _c(x + y, "act")
+        assign(cache.conv, i, conv_l)
+        assign(cache.ssm, i, state_l)
     return x, SSMServeState(cache.conv, cache.ssm, cache.length + 1)
 
 
@@ -238,17 +303,19 @@ def _decode_hybrid(params, cfg: ModelConfig, x, cache: HybridCaches):
         if win > 0 and alloc == win:  # ring cache
             _write(kc, vc, k, v, length % win)
             # ring slots hold the last `win` tokens; all valid once filled
-            out = L.ring_decode_attention(q, kc, vc, min(length + 1, win))
+            out = L.ring_decode_attention(_like_cache(q, kc), kc, vc, min(length + 1, win))
         else:
             _write(kc, vc, k, v, length)
             lengths = torch.full((x.shape[0],), length + 1, dtype=torch.int32, device=x.device)
-            out = L.decode_attention(q, kc, vc, lengths, window=win)
-        a = torch.einsum("bshk,hkd->bsd", out, bp_l["wo"].to(x.dtype))
-        s, conv[i], state[i] = _ssm_decode_layer(bp_l, cfg, x, conv[i], state[i])
+            out = L.decode_attention(_like_cache(q, kc), kc, vc, lengths, window=win)
+        a = heads_out(out, bp_l["wo"].to(x.dtype))
+        s, conv_l, state_l = _ssm_decode_layer(bp_l, cfg, x, conv[i], state[i])
+        assign(conv, i, conv_l)
+        assign(state, i, state_l)
         a = L.rms_norm(a, bp_l["fuse_norm_attn"], cfg.rms_eps)
         s = L.rms_norm(s, bp_l["fuse_norm_ssm"], cfg.rms_eps)
-        x = x + 0.5 * (a + s)
-        x = x + _mlp(bp_l, cfg, x)
+        x = _c(x + 0.5 * (a + s), "act")
+        x = _c(x + _mlp(bp_l, cfg, x), "act")
     return x, HybridCaches(attn=cache.attn, ssm=SSMServeState(conv, state, length + 1))
 
 
@@ -261,20 +328,23 @@ def prefill(params, cfg: ModelConfig, tokens: Tensor, max_len: int, paged: bool 
     dev = tokens.device
     if cfg.family != "ssm" and S > max_len:
         raise ValueError(f"a prompt of {S} tokens does not fit max_len {max_len}")
+    if paged and current_mesh_axes() is not None:
+        raise NotImplementedError("prefill under a mesh fills a contiguous cache: paged=False")
     cache = init_cache(cfg, B, max_len, paged=paged, device=dev)
-    x = _embed_tokens(params, cfg, tokens)
+    # same sequence-parallel residual-stream sharding as training
+    x = _c(_embed_tokens(params, cfg, tokens), "act")
     positions = torch.arange(S, device=dev)
 
     if cfg.family in ("dense", "moe"):
         rows = torch.arange(B, device=dev)
         for gl, bp_l, moe in _attn_layers(params, cfg):
             a, (k, v) = _attention(bp_l, cfg, x, positions, cfg.attn_window(gl))
-            x = x + a
+            x = _c(x + a, "act")
             if moe:
                 f, _ = _moe_ffn(bp_l, cfg, x)
-                x = x + f
+                x = _c(x + f, "act")
             else:
-                x = x + _mlp(bp_l, cfg, x)
+                x = _c(x + _mlp(bp_l, cfg, x), "act")
             if not paged:
                 cache.update_layer(k, v, gl)
                 continue
@@ -299,8 +369,10 @@ def prefill(params, cfg: ModelConfig, tokens: Tensor, max_len: int, paged: bool 
     elif cfg.family == "ssm":
         for i in range(cfg.n_layers):
             bp_l = layer_slice(params["blocks"], i)
-            y, cache.conv[i], cache.ssm[i] = _ssm_prefill_layer(bp_l, cfg, x)
-            x = x + y
+            y, conv_l, state_l = _ssm_prefill_layer(bp_l, cfg, x)
+            assign(cache.conv, i, conv_l)
+            assign(cache.ssm, i, state_l)
+            x = _c(x + y, "act")
         cache = SSMServeState(cache.conv, cache.ssm, S)
     else:  # hybrid
         conv, state = cache.ssm.conv, cache.ssm.ssm
@@ -308,18 +380,20 @@ def prefill(params, cfg: ModelConfig, tokens: Tensor, max_len: int, paged: bool 
             bp_l = layer_slice(params["blocks"], i)
             win = cfg.attn_window(i)
             a, (k, v) = _attention(bp_l, cfg, x, positions, win)
-            s, conv[i], state[i] = _ssm_prefill_layer(bp_l, cfg, x)
+            s, conv_l, state_l = _ssm_prefill_layer(bp_l, cfg, x)
+            assign(conv, i, conv_l)
+            assign(state, i, state_l)
             a = L.rms_norm(a, bp_l["fuse_norm_attn"], cfg.rms_eps)
             s = L.rms_norm(s, bp_l["fuse_norm_ssm"], cfg.rms_eps)
-            x = x + 0.5 * (a + s)
-            x = x + _mlp(bp_l, cfg, x)
+            x = _c(x + 0.5 * (a + s), "act")
+            x = _c(x + _mlp(bp_l, cfg, x), "act")
             kc0, vc0 = cache.attn[i]
             if win > 0 and kc0.shape[1] == win:
                 take = min(win, S)
                 # last `take` tokens land at ring slots (S - take + j) % win
                 idxs = torch.arange(S - take, S, device=dev) % win
-                kc0[:, idxs] = k[:, -take:].to(kc0.dtype)
-                vc0[:, idxs] = v[:, -take:].to(vc0.dtype)
+                assign(kc0, (slice(None), idxs), k[:, -take:].to(kc0.dtype))
+                assign(vc0, (slice(None), idxs), v[:, -take:].to(vc0.dtype))
             else:
                 _write(kc0, vc0, k, v, 0)
         cache = HybridCaches(attn=cache.attn, ssm=SSMServeState(conv, state, S))

@@ -145,7 +145,7 @@ def causal_conv(x: Tensor, conv_w: Tensor, cache: Tensor | None = None):
     else:
         xp = torch.cat([cache.to(x.dtype), x], dim=1)
     ys = sum(
-        xp[:, i : i + x.shape[1], :] * conv_w[i][None, None, :] for i in range(W)
+        xp[:, i : i + x.shape[1], :] * conv_w[i] for i in range(W)
     )
     new_cache = xp[:, xp.shape[1] - (W - 1) :, :]
     return F.silu(ys), new_cache

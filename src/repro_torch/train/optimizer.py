@@ -10,6 +10,11 @@ global norm sums its per-leaf f32 sums in the reference's order.
 
 Optimizer state dtype is configurable: f32 moments by default; ``m_dtype`` /
 ``v_dtype`` can be bf16 for memory-constrained runs.
+
+Sharded leaves (DTensors, under `repro_torch.sharding`'s mesh): the moments
+take each parameter's layout, the global norm sums every shard (its f32
+sums are all-reduced), and the elementwise update runs on each rank's local
+shard, its gradient first laid out as its parameter.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import math
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 Tensor = torch.Tensor
 
@@ -89,10 +95,14 @@ def lr_at(cfg: OptConfig, step: Tensor) -> Tensor:
 
 def adamw_init(params: Any, cfg: OptConfig) -> AdamWState:
     def zeros(dt: str):
-        return tree_map(lambda p: torch.zeros(p.shape, dtype=getattr(torch, dt),
-                                              device=p.device), params)
+        # zeros_like keeps a sharded leaf's layout (and a plain leaf's device)
+        return tree_map(lambda p: torch.zeros_like(p, dtype=getattr(torch, dt),
+                                                   memory_format=torch.contiguous_format),
+                        params)
 
-    step = torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device)
+    leaf = tree_leaves(params)[0]
+    dev = leaf.to_local().device if hasattr(leaf, "to_local") else leaf.device
+    step = torch.zeros((), dtype=torch.int32, device=dev)
     return AdamWState(step=step, m=zeros(cfg.m_dtype), v=zeros(cfg.v_dtype))
 
 
@@ -135,6 +145,8 @@ def adamw_update(
     bc2 = 1 - cfg.b2 ** stepf
 
     def upd(p, g, m, v):
+        if isinstance(p, DTensor):
+            return _upd_sharded(upd, p, g, m, v)
         outs = (torch.empty_like(p), torch.empty_like(m), torch.empty_like(v))
         flat = [t.reshape(-1) for t in (p, g, m, v)]
         views = [o.view(-1) for o in outs]
@@ -145,6 +157,22 @@ def adamw_update(
                 out[sl] = val
         return outs
 
+    if isinstance(gnorm, DTensor):
+        # the update runs on local shards: the replicated scalars as plain ones
+        gnorm_r = gnorm.full_tensor()
+        scale = scale.full_tensor() if isinstance(scale, DTensor) else scale
     out = tree_map(upd, params, grads, state.m, state.v)
+    if isinstance(gnorm, DTensor):
+        gnorm = gnorm_r
     pick = lambda i: tree_map(lambda t: t[i], out)  # noqa: E731
     return pick(0), AdamWState(step, pick(1), pick(2)), {"grad_norm": gnorm, "lr": lr}
+
+
+def _upd_sharded(upd, p, g, m, v):
+    """`adamw_update`'s leaf update of a DTensor leaf: on the local shards,
+    the gradient laid out as the parameter first."""
+    if tuple(g.placements) != tuple(p.placements):
+        g = g.redistribute(p.device_mesh, p.placements)
+    outs = upd(p.to_local(), g.to_local(), m.to_local(), v.to_local())
+    return tuple(DTensor.from_local(o, p.device_mesh, p.placements, run_check=False,
+                                    shape=p.shape, stride=p.stride()) for o in outs)

@@ -24,6 +24,7 @@ import dataclasses
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.sampling import mvs_threshold
 from repro_torch.models.config import ModelConfig
@@ -73,9 +74,16 @@ def value_and_grad(loss_fn, params: dict):
         loss, metrics = loss_fn(p)
         leaves = tree_leaves(p)
         grads = torch.autograd.grad(loss, leaves)
-    by_id = {id(t): g for t, g in zip(leaves, grads)}
+    by_id = {id(t): _as_param(g, t) for t, g in zip(leaves, grads)}
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, tree_map(lambda t: by_id[id(t)], p)
+
+
+def _as_param(g: Tensor, p: Tensor) -> Tensor:
+    """A sharded gradient laid out as its parameter (a partial sum reduced)."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, tc: TrainConfig = TrainConfig()):
