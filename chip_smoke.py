@@ -197,15 +197,22 @@ Phases, each of which fails the run on error:
      Each rank prints seconds a tree, the all-reduce's seconds, bytes and
      calls a tree, and its launches, which the kernels line adds as the
      sharded path (every kernel must be launched on it).
-  13. LM serving (`repro_torch.models`, after phase 11 (b)): (a) llama3.2-1b
-     (dense), olmoe-1b-7b (MoE, 64 experts top-8), mamba2-130m (SSM) and
-     hymba-1.5b (hybrid), each at its full CONFIG in bf16 with random
-     weights from a seeded generator on the card, served through
+  13. LM serving (`repro_torch.models`, after phase 11 (b)): (a) all ten
+     LM archs, llama3.2-1b (dense), olmoe-1b-7b (MoE, 64 experts top-8),
+     mamba2-130m (SSM) and hymba-1.5b (hybrid) first, then smollm-135m,
+     phi3-mini-3.8b, minicpm-2b, musicgen-large (4 codebooks, fed codes),
+     moonshot-v1-16b-a3b (MoE, a dense first layer, 64 experts top-6) and
+     llava-next-34b (60 layers, 56:8 GQA), each at its full CONFIG in bf16
+     with random weights from a seeded generator on the card (drawn a layer
+     at a time: one f32 block beside the weights), served through
      ``repro_torch.launch.serve.main`` (batch 4, prompt 32, 16 greedy
      tokens; dense and MoE also ``--paged``): every logit finite; prefill's
      and the first decode step's logits, contiguous and paged, against
-     ``forward`` over the prompt plus that token, in bf16 and on the same
-     weights widened to f32 (relative to the largest logit; MoE at a
+     ``forward`` over the prompt plus that token (a vision model's text
+     alone, as served), in bf16 and on the same weights widened to f32 (at
+     full depth where the f32 copy fits beside the bf16 weights, else on
+     the most leading layers that fit with the embeddings and head: llava,
+     moonshot; relative to the largest logit; MoE at a
      capacity at which neither drops an assignment and with every token
      routed as the forward routes it, its gap as served printed): on the
      served weights where they are well conditioned (a 1e-7 nudge of the
@@ -213,7 +220,13 @@ Phases, each of which fails the run on error:
      with attention on the same weights with q and k scaled by 0.1; paged
      against contiguous as served; prefill s, decode tok/s, wall ms a step,
      the card's busy ms a step (`torch.profiler`), peak device memory and
-     the step's bytes bound printed; each model freed before the next. (b) every arch at REDUCED (f32) and the four serve cases of
+     the step's bytes bound printed; each model freed before the next;
+     llava-next-34b's vision input at its real size, one no-grad bf16
+     ``forward`` and ``lm_loss`` over 576 seeded patch embeddings a
+     sequence (finite; loss, seconds, peak printed); hymba-1.5b again from
+     a 1,040-token prompt (batch 2) past its 1024-slot ring, prefill's and
+     all 16 decode steps' logits against the forward in bf16 and f32. (b)
+     every arch at REDUCED (f32) and the four serve cases of
      ``tests/test_models.py``: the same weights serve prefill and 4 greedy
      decode steps on the card and on the CPU, logits within 1e-4 and tokens
      equal. TF32 matmuls must be off (PyTorch's default; checked, not set).
@@ -223,7 +236,8 @@ Phases, each of which fails the run on error:
      weights from a seeded generator: llama3.2-1b (batch 4, seq 512, 8
      steps, then 8 with ``--mvs-f 0.5``), mamba2-130m (3 steps into a
      checkpoint directory, the restored state bit for bit the saved one,
-     then ``--resume`` for 2 more) and hymba-1.5b (3 steps); olmoe-1b-7b at
+     then ``--resume`` for 2 more), hymba-1.5b, smollm-135m, minicpm-2b
+     (its WSD schedule) and musicgen-large (3 steps each); olmoe-1b-7b at
      full width with its depth cut to what one card holds (printed), 3
      steps of `make_train_step`. Every loss and grad norm finite, MVS's kept
      fraction in [0, 1] each step and in (0, 1] over the run; wall ms a
@@ -238,7 +252,8 @@ Phases, each of which fails the run on error:
      the same uniforms on the card and on the CPU: loss, grad norm and the
      updated parameters within the CPU tests' tolerances. (d)
      ``examples/torch_mvs_lm_training.py`` and ``examples/torch_quickstart.py``
-     run on the card with their defaults in subprocesses and exit 0. The
+     run on the card with their defaults in two subprocesses started
+     together and exit 0. The
      phase launches none of the six kernels in this process (counted from
      zero and printed; the quickstart's subprocess is not counted).
   15. The dry run (`repro_torch.launch.dryrun`, after phase 14): (a) its
@@ -652,11 +667,11 @@ def main(argv=None) -> int:
     stream_codec_launches = compression_stream_phase(args.seed, dev, params)
     results.append(bitpack_row)
 
-    # 13. LM serving on the card: one model a family at full width, and every
-    # arch held against the CPU
+    # 13. LM serving on the card: every arch at full width, and every arch
+    # held against the CPU
     lm_launches = lm_serving_phase(dev)
 
-    # 14. LM training on the card: the same four families at full width
+    # 14. LM training on the card: the archs one card holds at full width
     # through the entry point, and every arch held against the CPU
     train_launches = lm_training_phase(dev)
 
@@ -3331,11 +3346,20 @@ def shard_rank_main(args) -> int:
 
 
 # ----------------------------------------------------- phase 13: LM serving
-# (a): one arch of each family at its full CONFIG, in bf16, through the
-# serving entry point; the attention families also paged
+# (a): every arch at its full CONFIG, in bf16, through the serving entry
+# point; the attention families also paged. One arch of each family first,
+# then the other six smallest first, so that a failure in a large one
+# leaves the small ones' lines
 LM_FULL = (("llama3.2-1b", True), ("olmoe-1b-7b", True), ("mamba2-130m", False),
-           ("hymba-1.5b", False))
+           ("hymba-1.5b", False), ("smollm-135m", True), ("phi3-mini-3.8b", True),
+           ("minicpm-2b", True), ("musicgen-large", True), ("moonshot-v1-16b-a3b", True),
+           ("llava-next-34b", True))
 LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 32, 16
+# (a)'s hymba-1.5b past its 1024-slot ring: a longer prompt, fewer sequences
+LM_RING_BATCH, LM_RING_PROMPT = 2, 1040
+# room left beside an f32 hold's weights (its activations and logits), and
+# beside a tempered copy of q and k
+LM_HOLD_HEADROOM = 2 * 2**30
 LM_DEVICE_STEPS = 4  # decode steps traced for the card's busy time
 # (a)'s checks, |a - b| / max |b| over a step's logits. bf16 serving (prefill
 # into caches, decode attention over them) against the bf16 forward over the
@@ -3391,14 +3415,18 @@ def _lm_step_bytes(cfg, params, batch: int, ctx: int) -> tuple[int, int, int]:
     included): (parameters as the port reads them, the same with only the
     routed experts' weights a token, caches and recurrent state). An
     untied embedding table gives only the batch's rows; a tied one is also
-    the output head, read whole. The port's MoE reads every expert's weights
-    (C = 8 slots each at one token a group)."""
+    the output head, read whole. A codebook model's tables give the batch's
+    rows of each, its heads are read whole. The port's MoE reads every
+    expert's weights (C = 8 slots each at one token a group)."""
     from repro_torch.models.transformer import param_bytes
 
     esize = params["final_norm"].element_size()
     read = param_bytes(params)
     if "embed" in params and not cfg.tie_embeddings:
         read -= params["embed"].numel() * esize - batch * cfg.d_model * esize
+    if "codebook_embed" in params:
+        read -= (params["codebook_embed"].numel() * esize
+                 - cfg.n_codebooks * batch * cfg.d_model * esize)
     active = read
     if cfg.family == "moe":
         moe_layers = cfg.n_layers - cfg.first_k_dense
@@ -3460,6 +3488,22 @@ def _tempered(params: dict) -> dict:
     return out
 
 
+def _lm_batch(cfg, tokens) -> dict:
+    """`forward`'s batch over served ``tokens``: a codebook model's codes
+    (B, S, K); a vision model's text alone, as it is served (no patch
+    embeddings, the forward then computes what prefill does)."""
+    if cfg.n_codebooks:
+        return {"codes": tokens}
+    batch = {"tokens": tokens}
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = tokens.new_zeros((tokens.shape[0], 0, cfg.d_model))
+    return batch
+
+
+def _embed_key(cfg) -> str:
+    return "codebook_embed" if cfg.n_codebooks else "embed"
+
+
 def _lm_nudge(params, cfg, tokens) -> float:
     """How far the forward's last logits move when the embeddings are
     scaled by 1 + LM_NUDGE (relative to the largest logit): the
@@ -3468,46 +3512,119 @@ def _lm_nudge(params, cfg, tokens) -> float:
 
     from repro_torch.models.transformer import forward
 
+    key = _embed_key(cfg)
     with torch.inference_mode():
-        full, _ = forward(params, cfg, {"tokens": tokens})
-        nudged = dict(params, embed=params["embed"] * (1 + LM_NUDGE))
-        moved, _ = forward(nudged, cfg, {"tokens": tokens})
+        full, _ = forward(params, cfg, _lm_batch(cfg, tokens))
+        nudged = dict(params, **{key: params[key] * (1 + LM_NUDGE)})
+        moved, _ = forward(nudged, cfg, _lm_batch(cfg, tokens))
     return _rel_err(moved[:, -1], full[:, -1])
 
 
-def _lm_device_step(params, cfg, prompts, tok0) -> tuple[float | None, float]:
-    """The card's busy ms a decode step and the device activities (kernels,
-    copies, fills) it runs, from a `torch.profiler` trace of LM_DEVICE_STEPS
-    steps (CUPTI): the activities of one stream do not overlap, so their
-    durations add up to the time the card works. None where the trace holds
-    no device activity."""
+def _stacks(cfg) -> tuple:
+    """(key, layers) of each layer-stacked dict, in the forward's order."""
+    if cfg.family == "moe" and cfg.first_k_dense:
+        return ("dense_blocks", cfg.first_k_dense), ("blocks", cfg.n_layers - cfg.first_k_dense)
+    return (("blocks", cfg.n_layers),)
+
+
+def _depth_cut(params: dict, cfg, k: int):
+    """The first ``k`` layers of ``params`` (views) with the embeddings,
+    the final norm and the head, and ``cfg`` at ``k`` layers."""
+    import dataclasses
+
+    if k == cfg.n_layers:
+        return params, cfg
+    out, left = dict(params), k
+    for key, n in _stacks(cfg):
+        if left < n:
+            out[key] = {name: w[:left] for name, w in params[key].items()}
+        left -= min(left, n)
+    return out, dataclasses.replace(cfg, n_layers=k)
+
+
+def _free_bytes(dev) -> int:
+    import torch
+
+    torch.cuda.empty_cache()  # the allocator's cached blocks count as used
+    return torch.cuda.mem_get_info(dev)[0]
+
+
+def _hold_depth(params: dict, cfg, dev) -> int:
+    """The most layers whose f32 copy fits the card beside what it holds
+    now: the copy's embeddings, norm and head, its first layers, and a
+    second f32 embedding table (the nudge's), with LM_HOLD_HEADROOM left.
+    Every layer where the whole model's copy fits."""
+    from repro_torch.models.transformer import _leaves
+
+    room = _free_bytes(dev) - LM_HOLD_HEADROOM
+    need = 4 * (params[_embed_key(cfg)].numel() + sum(
+        w.numel() for key, w in _leaves(params) if key.split("/")[0] not in
+        ("blocks", "dense_blocks")))
+    k = 0
+    for key, n in _stacks(cfg):
+        layer = 4 * sum(w.numel() for w in params[key].values()) // n
+        fit = min(n, max(0, (room - need) // layer))
+        need, k = need + fit * layer, k + fit
+        if fit < n:
+            break
+    if k < min(cfg.n_layers, 1 + (cfg.first_k_dense if cfg.family == "moe" else 0)):
+        raise SystemExit(f"{cfg.name}: no f32 hold fits beside the bf16 weights ({room} B free "
+                         f"past the headroom, {need} B needed)")
+    return k
+
+
+def _device_busy(step, n: int) -> tuple[float | None, float]:
+    """The card's busy ms a call of ``step`` and the device activities
+    (kernels, copies, fills) a call runs, from a `torch.profiler` trace of
+    ``n`` calls (CUPTI, device activities only): the activities of one
+    stream do not overlap, so their durations add up to the time the card
+    works. The trace's raw events are summed: parsing them into the
+    profiler's event tree, with host activities recorded too, takes seconds
+    a trace. None where the trace holds no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    # (a host without CUDA records host activities only: no device time)
+    activity = ProfilerActivity.CUDA if torch.cuda.is_available() else ProfilerActivity.CPU
+    with profile(activities=[activity]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    results = prof.profiler.kineto_results
+    device = [e for e in (results.events() if results else [])
+              if e.device_type() == DeviceType.CUDA]
+    busy_ms = sum(e.duration_ns() for e in device) / 1e6 / n
+    return (busy_ms if device else None), len(device) / n
+
+
+def _lm_device_step(params, cfg, prompts, tok0) -> tuple[float | None, float]:
+    """The card's busy ms a decode step and the device activities it runs
+    (`_device_busy` over LM_DEVICE_STEPS steps)."""
+    import torch
 
     from repro_torch.models import serve as lm_serve
 
     n, S = LM_DEVICE_STEPS, prompts.shape[1]
     with torch.inference_mode():
         _, cache = lm_serve.prefill(params, cfg, prompts, max_len=S + n + 1)
-        _, cache = lm_serve.decode_step(params, cfg, tok0, cache)  # warm
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                _, cache = lm_serve.decode_step(params, cfg, tok0, cache)
-            torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3 / n
-    return (busy_ms if device else None), len(device) / n
+        box = [lm_serve.decode_step(params, cfg, tok0, cache)[1]]  # warm
+
+        def step():
+            box[0] = lm_serve.decode_step(params, cfg, tok0, box[0])[1]
+
+        return _device_busy(step, n)
 
 
 def _lm_consistency(params, cfg, prompts, tok0, logits=None,
-                    paged: bool = False) -> tuple[float, float]:
-    """Serving (into a paged KV cache if ``paged``) against the forward pass
-    over the prompt plus ``tok0``: relative errors of prefill's logits and of
-    the first decode step's. ``logits`` are that prefill's and step's when a
-    run already made them. For a MoE config serving routes every token as
-    the forward did (`_RouteTape`)."""
+                    pages: tuple = (False,)) -> list[tuple[float, float]]:
+    """Serving into each cache of ``pages`` (a paged KV cache where True)
+    against the forward pass over the prompt plus ``tok0``, computed once:
+    the relative errors of prefill's logits and of the first decode step's,
+    a pair a cache. ``logits`` are a contiguous cache's prefill and step
+    logits where a run already made them. For a MoE config serving routes
+    every token as the forward did (`_RouteTape`)."""
     import torch
 
     from repro_torch.models import moe as moe_lib
@@ -3515,28 +3632,33 @@ def _lm_consistency(params, cfg, prompts, tok0, logits=None,
     from repro_torch.models.transformer import forward
 
     S = prompts.shape[1]
-    tape = _RouteTape(moe_lib.route) if cfg.family == "moe" and logits is None else None
+    serves = logits is None or any(pages)
+    tape = _RouteTape(moe_lib.route) if cfg.family == "moe" and serves else None
+    errs = []
     try:
         if tape is not None:
             moe_lib.route = tape
         with torch.inference_mode():
-            full, _ = forward(params, cfg, {"tokens": _cat_tok(prompts, tok0)})
-            if logits is None:
-                if tape is not None:
-                    tape.play_from(0)
-                pre, cache = lm_serve.prefill(params, cfg, prompts, max_len=S + 1, paged=paged)
-                if tape is not None:
-                    tape.play_from(S)
-                step, _ = lm_serve.decode_step(params, cfg, tok0, cache)
-            else:
-                pre, step = logits
+            full, _ = forward(params, cfg, _lm_batch(cfg, _cat_tok(prompts, tok0)))
+            for paged in pages:
+                if logits is None or paged:
+                    if tape is not None:
+                        tape.play_from(0)
+                    pre, cache = lm_serve.prefill(params, cfg, prompts, max_len=S + 1,
+                                                  paged=paged)
+                    if tape is not None:
+                        tape.play_from(S)
+                    step, _ = lm_serve.decode_step(params, cfg, tok0, cache)
+                    if tape is not None and tape.calls != len(tape.ids):
+                        raise SystemExit(f"{cfg.name}: the decode step replayed {tape.calls} "
+                                         f"of {len(tape.ids)} MoE layers' routing")
+                else:
+                    pre, step = logits
+                errs.append((_rel_err(pre, full[:, S - 1]), _rel_err(step, full[:, S])))
     finally:
         if tape is not None:
             moe_lib.route = tape.route
-    if tape is not None and tape.calls != len(tape.ids):
-        raise SystemExit(f"{cfg.name}: the decode step replayed {tape.calls} of "
-                         f"{len(tape.ids)} MoE layers' routing")
-    return _rel_err(pre, full[:, S - 1]), _rel_err(step, full[:, S])
+    return errs
 
 
 def lm_full_width(dev, arch: str, paged: bool) -> None:
@@ -3571,40 +3693,61 @@ def lm_full_width(dev, arch: str, paged: bool) -> None:
         # the two paths route near-tied tokens apart: print that gap, then
         # hold serving to the forward at a capacity at which neither drops
         # (C >= the group's tokens), each token routed as in the forward
-        gap = _lm_consistency(params, cfg, run.prompts, tok0, logits)
+        gap = _lm_consistency(params, cfg, run.prompts, tok0, logits)[0]
         print(f"  {arch} as served (capacity_factor {cfg.capacity_factor:g}, own routing): "
               f"prefill vs forward rel err {gap[0]:.6f}, decode step 1 vs forward {gap[1]:.6f} "
               f"(printed, not checked)")
         check_cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
         logits = None
-    f32_cfg = dataclasses.replace(check_cfg, dtype="float32")
-    wide = _tree_to(params, None)
+    # the f32 hold: the same weights widened, at full depth where their f32
+    # copy fits the card beside the bf16 ones, else on the first k layers
+    # (the embeddings, norm and head kept) at the full widths
+    k = _hold_depth(params, check_cfg, dev)
+    cut, cut_cfg = _depth_cut(params, check_cfg, k)
+    f32_cfg = dataclasses.replace(cut_cfg, dtype="float32")
+    hold = "" if k == cfg.n_layers else f" on the first {k} of {cfg.n_layers} layers"
+    wide = _tree_to(cut, None)
     nudge = _lm_nudge(wide, f32_cfg, _cat_tok(run.prompts, tok0))
     conditioned = nudge <= LM_CONDITIONED
     print(f"  {arch}: a {LM_NUDGE:g} nudge of the embeddings moves the f32 forward's last "
-          f"logits by {nudge:.3e} of the largest: the served weights are "
-          f"{'' if conditioned else 'not '}held (bound {LM_CONDITIONED:g})")
-    passes = [("served weights", params, logits)]
+          f"logits{hold} by {nudge:.3e} of the largest: the served weights are "
+          f"{'' if conditioned else 'not '}held (bound {LM_CONDITIONED:g})"
+          + (f"; the f32 hold runs{hold} with the embeddings, final norm and head, the most "
+             f"layers whose f32 copy fits beside the bf16 weights, and the conditioning was "
+             f"read on that cut, not at the full depth the bf16 checks run at" if hold else ""))
+    passes = [("served weights", False)]
     if cfg.family != "ssm":  # attention to temper
-        passes.append((f"q, k x {LM_TEMPER:g}", _tempered(params), None))
-    for label, weights, given in passes:
-        if weights is not params:
-            wide = _tree_to(weights, None)
-        checked = weights is not params or conditioned
-        for pg in (False, True)[: 1 + paged]:
+        passes.append((f"q, k x {LM_TEMPER:g}", True))
+    pages = (False, True)[: 1 + paged]
+    for label, temper in passes:
+        weights = params
+        if temper:
+            copy = sum(params[key][w].numel() * params[key][w].element_size()
+                       for key, _ in _stacks(cfg) for w in ("wq", "wk"))
+            free = _free_bytes(dev)
+            if copy + LM_HOLD_HEADROOM > free:
+                raise SystemExit(f"{arch}: a tempered copy of q and k ({copy} B) does not fit "
+                                 f"the card's {free} B free")
+            weights = _tempered(params)
+        e16 = _lm_consistency(weights, check_cfg, run.prompts, tok0,
+                              None if temper else logits, pages)
+        del weights
+        if temper:
+            wide = _tree_to(_tempered(cut), None)
+        e32 = _lm_consistency(wide, f32_cfg, run.prompts, tok0, pages=pages)
+        del wide
+        checked = temper or conditioned
+        for pg, a, b in zip(pages, e16, e32):
             cache = "paged cache" if pg else LM_CACHES[cfg.family]
-            e16 = _lm_consistency(weights, check_cfg, run.prompts, tok0, None if pg else given,
-                                  paged=pg)
-            e32 = _lm_consistency(wide, f32_cfg, run.prompts, tok0, paged=pg)
             print(f"  {arch} consistency, {label}, {cache}"
                   f"{', routed as the forward' if cfg.family == 'moe' else ''}: bf16 prefill vs "
-                  f"forward rel err {e16[0]:.6f}, decode step 1 {e16[1]:.6f} (bound "
-                  f"{LM_BF16_REL_TOL}); in f32 {e32[0]:.3e}, {e32[1]:.3e} (bound "
+                  f"forward rel err {a[0]:.6f}, decode step 1 {a[1]:.6f} (bound "
+                  f"{LM_BF16_REL_TOL}); in f32{hold} {b[0]:.3e}, {b[1]:.3e} (bound "
                   f"{LM_F32_REL_TOL}){'' if checked else '; printed, not checked'}")
-            if checked and (max(e16) > LM_BF16_REL_TOL or max(e32) > LM_F32_REL_TOL):
+            if checked and (max(a) > LM_BF16_REL_TOL or max(b) > LM_F32_REL_TOL):
                 raise SystemExit(f"{arch}: {cache} serving disagrees with the forward pass "
                                  f"({label})")
-    del wide, passes, weights
+    del cut
 
     step_ms = (run.decode_s - run.first_step_s) / (LM_TOKENS - 1) * 1e3
     device_ms, activities = _lm_device_step(params, cfg, run.prompts, tok0)
@@ -3619,7 +3762,8 @@ def lm_full_width(dev, arch: str, paged: bool) -> None:
           f"prefill_s={run.prefill_s:.4f} decode_s={run.decode_s:.4f} "
           f"tok_per_s={LM_TOKENS * B / run.decode_s:.1f} first_step_ms={run.first_step_s * 1e3:.3f} "
           f"step_ms={step_ms:.3f} (steps 2-{LM_TOKENS}) steady_tok_per_s={B / step_ms * 1e3:.1f} "
-          f"peak_device_bytes={peak} (at start {base}) bound_ms={bound_ms:.4f} "
+          f"peak_device_bytes={peak} (at start {base}; the card holds "
+          f"{torch.cuda.get_device_properties(dev).total_memory}) bound_ms={bound_ms:.4f} "
           f"(bytes: {read} B of parameters + {state} B of caches and state a step at the last "
           f"step's context, over {HBM_BYTES_PER_S / 1e12:.2f} TB/s){note} "
           f"step/bound={step_ms / bound_ms:.2f} device_busy_ms="
@@ -3627,6 +3771,8 @@ def lm_full_width(dev, arch: str, paged: bool) -> None:
              f"{activities:.0f} device activities a step) device_busy_share="
              f"{device_ms / step_ms:.3f}" if device_ms is not None
              else "not measured (no device activity in the profiler's trace)"))
+    if cfg.frontend == "vision":
+        _lm_vision_pass(params, cfg, dev)
     contiguous = [lg.clone() for lg in run.logits[:2]]
     del run, params
     torch.cuda.empty_cache()
@@ -3651,6 +3797,138 @@ def lm_full_width(dev, arch: str, paged: bool) -> None:
     if conditioned and max(e_pre, e_step) > LM_BF16_REL_TOL:
         raise SystemExit(f"{arch}: paged serving disagrees with contiguous")
     del paged_run
+    torch.cuda.empty_cache()
+
+
+def _lm_vision_pass(params, cfg, dev) -> None:
+    """A vision model's patch input at its real size, which serving (text
+    only, as the reference's) never takes: one no-grad bf16 `forward` and
+    `lm_loss` over LM_BATCH sequences of ``n_patches`` seeded patch
+    embeddings (made as `launch.train.synth_batch` makes them) and
+    LM_PROMPT tokens; logits and loss finite, loss, seconds and peak
+    printed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models.transformer import forward, lm_loss
+
+    batch = synth_batch(cfg, np.random.default_rng(0), LM_BATCH, LM_PROMPT, dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, _ = forward(params, cfg, batch)
+        finite = bool(torch.isfinite(logits).all())
+        t1 = time.perf_counter()
+        loss, _ = lm_loss(params, cfg, batch, remat=False)
+        loss = float(loss)
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated(dev)
+    S = cfg.n_patches + LM_PROMPT
+    shape = tuple(logits.shape)
+    if shape != (LM_BATCH, S, cfg.vocab_size) or not finite or not math.isfinite(loss):
+        raise SystemExit(f"{cfg.name}: the vision forward gave {shape} logits "
+                         f"(finite: {finite}) and loss {loss}")
+    print(f"lm vision {cfg.name}: batch {LM_BATCH} x ({cfg.n_patches} patch embeddings + "
+          f"{LM_PROMPT} tokens) at d_model {cfg.d_model}, bf16, no grad: forward_s={t1 - t0:.4f} "
+          f"(logits {shape} finite) lm_loss={loss:.4f} (ln V = "
+          f"{math.log(cfg.vocab_size):.4f}) lm_loss_s={t2 - t1:.4f} peak_device_bytes={peak} "
+          f"(at start {base})")
+    del logits, batch
+
+
+def _teacher_forced(params, cfg, prompts, toks) -> list:
+    """Prefill over ``prompts``, then a decode step on each of ``toks``
+    (the served tokens, in order): every step's logits, prefill's first."""
+    import torch
+
+    from repro_torch.models import serve as lm_serve
+
+    with torch.inference_mode():
+        lg, cache = lm_serve.prefill(params, cfg, prompts, max_len=prompts.shape[1] + len(toks))
+        out = [lg]
+        for tok in toks:
+            lg, cache = lm_serve.decode_step(params, cfg, tok, cache)
+            out.append(lg)
+    return out
+
+
+def _ring_gap(params, cfg, prompts, toks, served=None) -> float:
+    """The largest relative error of serving's logits (``served``, else
+    served here teacher-forced on ``toks``) against the forward over the
+    prompt and ``toks``."""
+    import torch
+
+    from repro_torch.models.transformer import forward
+
+    S = prompts.shape[1]
+    served = served or _teacher_forced(params, cfg, prompts, toks)
+    with torch.inference_mode():
+        full, _ = forward(params, cfg, _lm_batch(cfg, torch.cat([prompts] + [
+            t[:, None] for t in toks], dim=1)))
+    return max(_rel_err(lg, full[:, S - 1 + i]) for i, lg in enumerate(served))
+
+
+def lm_ring_wrap(dev) -> None:
+    """13 (a) for hymba-1.5b past its ring: served through the entry point
+    (bf16, full CONFIG) from a prompt longer than its sliding window, so
+    that prefill wraps every window layer's ring and each decode step writes
+    over its oldest slot; prefill's and every decode step's logits against
+    the forward over the same tokens, in bf16 and on the weights widened to
+    f32 (served weights where the nudge allows, and q, k tempered)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch import serve as serve_cmd
+
+    arch = "hymba-1.5b"
+    argv = ["--arch", arch, "--full", "--batch", str(LM_RING_BATCH), "--prompt-len",
+            str(LM_RING_PROMPT), "--tokens", str(LM_TOKENS), "--device", str(dev)]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    run = serve_cmd.main(argv)
+    peak = torch.cuda.max_memory_allocated(dev)
+    cfg, params, prompts = run.cfg, run.params, run.prompts
+    window = max(cfg.attn_window(i) for i in range(cfg.n_layers))
+    if not 0 < window < LM_RING_PROMPT:
+        raise SystemExit(f"{arch}: a {LM_RING_PROMPT}-token prompt does not wrap a "
+                         f"{window}-slot ring")
+    if not all(bool(torch.isfinite(lg).all()) for lg in run.logits):
+        raise SystemExit(f"{arch} ring: logits not all finite")
+    toks = run.tokens[:LM_TOKENS]  # the tokens the decode steps took
+    f32_cfg = dataclasses.replace(cfg, dtype="float32")
+    wide = _tree_to(params, None)
+    nudge = _lm_nudge(wide, f32_cfg, torch.cat([prompts] + [t[:, None] for t in toks], dim=1))
+    conditioned = nudge <= LM_CONDITIONED
+    step_ms = (run.decode_s - run.first_step_s) / (LM_TOKENS - 1) * 1e3
+    print(f"lm serve {arch} ring: batch {LM_RING_BATCH}, prompt {LM_RING_PROMPT} past the "
+          f"{window}-slot ring of {sum(cfg.attn_window(i) > 0 for i in range(cfg.n_layers))} "
+          f"of {cfg.n_layers} layers, {LM_TOKENS} decode steps to position "
+          f"{LM_RING_PROMPT + LM_TOKENS - 1}: prefill_s={run.prefill_s:.4f} "
+          f"step_ms={step_ms:.3f} (steps 2-{LM_TOKENS}) peak_device_bytes={peak}; a "
+          f"{LM_NUDGE:g} nudge moves the f32 logits by {nudge:.3e}: the served weights are "
+          f"{'' if conditioned else 'not '}held (bound {LM_CONDITIONED:g})")
+    for label, temper in (("served weights", False), (f"q, k x {LM_TEMPER:g}", True)):
+        if temper:
+            del wide
+            weights = _tempered(params)
+            e16 = _ring_gap(weights, cfg, prompts, toks)
+            wide = _tree_to(weights, None)
+            del weights
+        else:
+            e16 = _ring_gap(params, cfg, prompts, toks, served=run.logits)
+        e32 = _ring_gap(wide, f32_cfg, prompts, toks)
+        checked = temper or conditioned
+        print(f"  {arch} ring consistency, {label}: prefill and {LM_TOKENS} decode steps vs "
+              f"forward, largest rel err bf16 {e16:.6f} (bound {LM_BF16_REL_TOL}), f32 "
+              f"{e32:.3e} (bound {LM_F32_REL_TOL}){'' if checked else '; printed, not checked'}")
+        if checked and (e16 > LM_BF16_REL_TOL or e32 > LM_F32_REL_TOL):
+            raise SystemExit(f"{arch}: serving past the ring disagrees with the forward pass "
+                             f"({label})")
+    del run, params, wide
     torch.cuda.empty_cache()
 
 
@@ -3725,7 +4003,12 @@ def lm_serving_phase(dev) -> dict:
     t0 = time.perf_counter()
     zero_counts()
     for arch, paged in LM_FULL:
+        t = time.perf_counter()
         lm_full_width(dev, arch, paged)
+        print(f"  {arch}: 13 (a) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    lm_ring_wrap(dev)
+    print(f"  hymba-1.5b past its ring: took {time.perf_counter() - t:.1f} s")
     lm_card_vs_cpu(dev)
     counts = read_counts()
     print(f"lm serving path launches: {json.dumps(counts)} ({time.perf_counter() - t0:.1f} s)")
@@ -3737,7 +4020,10 @@ def lm_serving_phase(dev) -> dict:
 # (6.9 B parameters, ~12 bytes each with its AdamW state) at full width
 # with fewer layers, through the step functions
 TRAIN_BATCH, TRAIN_SEQ = 4, 512
-TRAIN_FULL = (("llama3.2-1b", 8), ("mamba2-130m", 3), ("hymba-1.5b", 3))
+# the archs whose step one card holds, by `train_peak_reckoned`: musicgen-large
+# reckons 72,782,962,732 B; phi3-mini-3.8b, at 85,405,935,660 B, is past one card
+TRAIN_FULL = (("llama3.2-1b", 8), ("mamba2-130m", 3), ("hymba-1.5b", 3), ("smollm-135m", 3),
+              ("minicpm-2b", 3), ("musicgen-large", 3))
 TRAIN_RESUME_STEPS = 2  # mamba2-130m's steps after --resume
 TRAIN_PROFILED_STEPS = 2  # steps traced for the card's busy time
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
@@ -3762,23 +4048,19 @@ def _finite(run, arch: str) -> None:
 
 
 def _train_busy_ms(state, batch: dict, step_fn, uniforms=None) -> float | None:
-    """The card's busy ms a step from a `torch.profiler` trace of
-    TRAIN_PROFILED_STEPS steps (device activities summed, one stream), None
-    where the trace holds no device activity."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """The card's busy ms a step (`_device_busy` over TRAIN_PROFILED_STEPS
+    steps from ``state``), None where the trace holds no device activity.
+    The steps make new states: the caller hands over its only reference to
+    ``state``, so that two states at most are alive at once."""
+    box = [state]
+    del state
 
-    n = TRAIN_PROFILED_STEPS
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            args = (state, batch) if uniforms is None else (state, batch, uniforms)
-            state, metrics = step_fn(*args)
-            float(metrics["loss"])
-        torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return sum(e.time_range.elapsed_us() for e in device) / 1e3 / n if device else None
+    def step():
+        args = (box[0], batch) if uniforms is None else (box[0], batch, uniforms)
+        box[0], metrics = step_fn(*args)
+        float(metrics["loss"])
+
+    return _device_busy(step, TRAIN_PROFILED_STEPS)[0]
 
 
 def _train_report(label: str, cfg, n: int, step_s: list, peak: int, busy_ms) -> None:
@@ -3815,6 +4097,7 @@ def lm_train_full(dev, arch: str, steps: int, ckpt_root: str) -> None:
     """14 (a) for one arch, through the entry point (full CONFIG, bf16)."""
     import torch
 
+    from repro_torch.configs.registry import get_module
     from repro_torch.launch import train as train_cmd
     from repro_torch.models.transformer import param_count
     from repro_torch.train.checkpoint import restore_checkpoint
@@ -3839,6 +4122,8 @@ def lm_train_full(dev, arch: str, steps: int, ckpt_root: str) -> None:
         losses = [round(m["loss"], 4) for m in run.metrics]
         line = f"  {arch}{label}: losses {losses}, grad norms " + str(
             [round(m["grad_norm"], 3) for m in run.metrics])
+        schedule = getattr(get_module(arch), "PREFERRED_SCHEDULE", "cosine")
+        line += f", {schedule} lr " + str([float(f"{m['lr']:.3g}") for m in run.metrics])
         uniforms = None
         if extra:
             # Poisson sampling may keep no sequence of a batch in a step (its
@@ -3849,7 +4134,8 @@ def lm_train_full(dev, arch: str, steps: int, ckpt_root: str) -> None:
                                  f"their mean outside (0, 1]")
             line += f", kept {kept} (mean {sum(kept) / len(kept):.3f})"
         print(line)
-        oc = OptConfig(peak_lr=1e-3, warmup_steps=max(steps // 10, 1), total_steps=steps)
+        oc = OptConfig(peak_lr=1e-3, warmup_steps=max(steps // 10, 1), total_steps=steps,
+                       schedule=schedule)
         batch = _synth(run.cfg, dev)
         if extra:
             step_fn = make_mvs_train_step(run.cfg, oc, TrainConfig(mvs_f=0.5))
@@ -3857,8 +4143,7 @@ def lm_train_full(dev, arch: str, steps: int, ckpt_root: str) -> None:
                                   .manual_seed(5), device=dev)
         else:
             step_fn = make_train_step(run.cfg, oc)
-        busy = _train_busy_ms(run.state, batch, step_fn, uniforms)
-        _train_report(f"{arch}{label}", run.cfg, param_count(run.state.params), run.step_s, peak, busy)
+        n = param_count(run.state.params)
         if ckpt:
             # the checkpoint restores the state the run ended with, bit for bit
             restored, at = restore_checkpoint(ckpt, run.state)
@@ -3879,6 +4164,11 @@ def lm_train_full(dev, arch: str, steps: int, ckpt_root: str) -> None:
                   f"--resume ran steps {steps}-{steps + TRAIN_RESUME_STEPS - 1}, losses "
                   f"{[round(m['loss'], 4) for m in later.metrics]}")
             del later
+        # the trace's steps make new states: hand it the only reference to
+        # the run's, so that two states at most are alive at once
+        held, run.state = [run.state], None
+        busy = _train_busy_ms(held.pop(), batch, step_fn, uniforms)
+        _train_report(f"{arch}{label}", run.cfg, n, run.step_s, peak, busy)
         del run, step_fn, batch
         torch.cuda.empty_cache()
 
@@ -4043,16 +4333,43 @@ def lm_train_card_vs_cpu(dev) -> None:
 
 
 def lm_train_examples() -> None:
-    """14 (d): the LM and GBDT quickstart examples on the card, defaults."""
+    """14 (d): the LM and GBDT quickstart examples on the card, defaults,
+    in two subprocesses started together (most of each is its start)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    for script in ("examples/torch_mvs_lm_training.py", "examples/torch_quickstart.py"):
-        t0 = time.perf_counter()
-        out = subprocess.run([sys.executable, str(ROOT / script)], capture_output=True,
-                             text=True, env=env, cwd=ROOT, timeout=300)
-        if out.returncode != 0:
-            raise SystemExit(f"{script} exited {out.returncode}: {out.stderr[-2000:]}")
-        tail = " | ".join(out.stdout.strip().splitlines()[-2:])
-        print(f"example {script}: exit 0 in {time.perf_counter() - t0:.1f} s: {tail}")
+    t0 = time.perf_counter()
+    procs = [(script, subprocess.Popen([sys.executable, str(ROOT / script)], env=env, cwd=ROOT,
+                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True))
+             for script in ("examples/torch_mvs_lm_training.py", "examples/torch_quickstart.py")]
+    try:
+        for script, proc in procs:
+            out, err = proc.communicate(timeout=max(1.0, t0 + 300 - time.perf_counter()))
+            if proc.returncode != 0:
+                raise SystemExit(f"{script} exited {proc.returncode}: {err[-2000:]}")
+            tail = " | ".join(out.strip().splitlines()[-2:])
+            print(f"example {script}: exit 0 in {time.perf_counter() - t0:.1f} s: {tail}")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def train_peak_reckoned(arch: str) -> None:
+    """Prints the dry run's peak estimate of one training step of ``arch``
+    at TRAIN_BATCH x TRAIN_SEQ in bf16 on a 1 x 1 mesh (a world of one, meta
+    tensors, on the host) as one JSON line: the one-time reckoning behind
+    TRAIN_FULL, run by hand with no card, e.g. ``PYTHONPATH=src python3 -c
+    "import chip_smoke; chip_smoke.train_peak_reckoned('phi3-mini-3.8b')"``."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh, mesh_axes
+
+    shape = ShapeSpec(f"train_{TRAIN_BATCH}x{TRAIN_SEQ}", "train", TRAIN_SEQ, TRAIN_BATCH)
+    with dryrun.fake_world(1):
+        mesh = make_host_mesh(1, 1, device_type="cpu")
+        cost = dryrun.trace_lm(get_config(arch), shape, mesh, mesh_axes(False))
+    print(json.dumps({"arch": arch, "peak": cost.peak, "flops": cost.flops}))
 
 
 def lm_training_phase(dev) -> dict:
@@ -4072,7 +4389,9 @@ def lm_training_phase(dev) -> dict:
     zero_counts()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_root:
         for arch, steps in TRAIN_FULL:
+            t = time.perf_counter()
             lm_train_full(dev, arch, steps, ckpt_root)
+            print(f"  {arch}: 14 (a) took {time.perf_counter() - t:.1f} s")
     lm_train_olmoe(dev)
     lm_memorise(dev)
     lm_train_card_vs_cpu(dev)

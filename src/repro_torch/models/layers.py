@@ -202,12 +202,36 @@ def swiglu(x: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
+# a 2-D table's or head's f32 draw block: at most this many elements (2 MiB),
+# below every full config's largest layer slice (smollm-135m's 884,736)
+DRAW_BLOCK = 1 << 19
+
+
 def dense_init(generator: torch.Generator | None, shape: tuple[int, ...], dtype: torch.dtype,
                device: torch.device, scale: float | None = None) -> Tensor:
     """Normal weights times ``scale`` (default 1/sqrt(shape[0]), the
     reference's rule, which for a layer-stacked shape reads the layer count),
-    drawn in f32 from ``generator`` on ``device``."""
+    drawn in f32 from ``generator`` on ``device``.
+
+    The result is allocated once, in ``dtype``, and filled one block along
+    dim 0 at a time: one layer of a stacked (3-D or more) shape, or rows of
+    a 2-D table or head, at most DRAW_BLOCK elements a block (one row at
+    least). Each block is drawn in f32, scaled in place and cast into the
+    result, so a draw holds one f32 block beside its result, never the whole
+    shape in f32 (llava-next-34b's ``w_gate`` would take 35 GB). With no
+    generator (the meta device, where nothing is drawn) the shape is made
+    whole."""
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
-    w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
-    return (w * scale).to(dtype)
+    if generator is None:
+        w = torch.randn(shape, dtype=torch.float32, device=device)
+        return (w * scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    row = math.prod(shape[1:])
+    rows = 1 if len(shape) >= 3 else max(1, DRAW_BLOCK // max(row, 1))
+    for i in range(0, shape[0], rows):
+        n = min(rows, shape[0] - i)
+        block = torch.randn((n, *shape[1:]), generator=generator, dtype=torch.float32,
+                            device=device)
+        out[i : i + n].copy_(block.mul_(scale))
+    return out

@@ -127,7 +127,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None,
     ``generator`` (a `torch.Generator` on that device; None only on the meta
     device, where nothing is drawn). The tree and its shapes are the
     reference's ``init_params``; the values come from torch's generator, so
-    they differ from the reference's (carry those with `params_from_numpy`)."""
+    they differ from the reference's (carry those with `params_from_numpy`).
+    Each drawn leaf is allocated once and filled a layer or a row block at a
+    time (`layers.dense_init`): the draw's peak is the weights and one f32
+    block, which lets llava-next-34b's 68.8 GB of bf16 weights be drawn on
+    one 80 GB card."""
     dev = torch.device(device)
     dtype = model_dtype(cfg)
     Lc = cfg.n_layers
