@@ -274,6 +274,18 @@ Phases, each of which fails the run on error:
      step's inputs included) must lie within 25% of the dry run's peak
      estimate; the measured ms a step over the roofline's max(compute,
      memory) s is printed. It launches none of the six kernels.
+  16. The sharded LM program (after phase 15), as a world of one over
+     NCCL on a 1 x 1 mesh of the card (gloo ranks sharing a card die on
+     DTensor's all-gather of CUDA tensors under torch 2.11): REDUCED
+     llama3.2-1b, olmoe-1b-7b and hymba-1.5b in f32, prefill, 3 greedy
+     decode steps and a train step on the mesh against no mesh (loss 1e-5,
+     grad norm 1e-5, logits to the f32 floor, decode 1e-4 with equal
+     tokens), each state after a step saved sharded (`train.checkpoint`),
+     restored with its `sharding.state_shardings` and with none, both bit
+     for bit, and the next step from it within 1e-5 of the uninterrupted
+     one. The worlds of 2 and 4 ranks are the four-card runs of
+     ``tests/test_torch_cuda.py`` (NCCL, one card a rank). It launches none
+     of the six kernels.
 
 The streaming and sampled fits' device-memory peaks above their starts must
 stay within the budget their policy decided under (phases 6 and 6b). The card's compute mode must be
@@ -679,6 +691,11 @@ def main(argv=None) -> int:
     # dry-run FLOPs and peak are held to the card's
     dryrun_launches = dryrun_phase(dev)
 
+    # 16. the sharded LM program: what one card holds (a world of one over
+    # NCCL, a sharded checkpoint restored with its layouts), and the
+    # four-card runs where there are four cards
+    lm_shard_launches = lm_sharded_phase(dev)
+
     # launches: the paths' runs (phase 10's lossguide fits among them), each
     # counted from zero (per path above);
     # the chunk-shape row of predict_forest counts its chunked launches alone
@@ -689,7 +706,7 @@ def main(argv=None) -> int:
                          serving_launches, lg_core_launches, lg_paged_launches,
                          lg_elastic_launches, grad_launches, serve_codec_launches,
                          stream_codec_launches, sharded_launches, lm_launches,
-                         train_launches, dryrun_launches)
+                         train_launches, dryrun_launches, lm_shard_launches)
         )
     i = next(i for i, r in enumerate(results) if r["name"] == "predict_forest")
     results.insert(i + 1, chunk_row)
@@ -4355,21 +4372,24 @@ def lm_train_examples() -> None:
                 proc.wait()
 
 
-def train_peak_reckoned(arch: str) -> None:
-    """Prints the dry run's peak estimate of one training step of ``arch``
-    at TRAIN_BATCH x TRAIN_SEQ in bf16 on a 1 x 1 mesh (a world of one, meta
-    tensors, on the host) as one JSON line: the one-time reckoning behind
-    TRAIN_FULL, run by hand with no card, e.g. ``PYTHONPATH=src python3 -c
-    "import chip_smoke; chip_smoke.train_peak_reckoned('phi3-mini-3.8b')"``."""
+def train_peak_reckoned(arch: str, mesh: tuple[int, int] = (1, 1)) -> None:
+    """Prints the dry run of one training step of ``arch`` at TRAIN_BATCH x
+    TRAIN_SEQ in bf16 on a ``(data, model)`` mesh (a fake world of its size,
+    meta tensors, on the host) as one JSON line: the per-device peak
+    estimate, FLOPs and collective bytes. The one-time reckoning behind
+    TRAIN_FULL (1 x 1), run by hand with no card, e.g. ``PYTHONPATH=src
+    python3 -c "import chip_smoke; chip_smoke.train_peak_reckoned('phi3-mini-3.8b')"``,
+    and the choice of mesh of the four-card runs (`tests/test_torch_cuda.py`)."""
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_host_mesh, mesh_axes
 
     shape = ShapeSpec(f"train_{TRAIN_BATCH}x{TRAIN_SEQ}", "train", TRAIN_SEQ, TRAIN_BATCH)
-    with dryrun.fake_world(1):
-        mesh = make_host_mesh(1, 1, device_type="cpu")
-        cost = dryrun.trace_lm(get_config(arch), shape, mesh, mesh_axes(False))
-    print(json.dumps({"arch": arch, "peak": cost.peak, "flops": cost.flops}))
+    with dryrun.fake_world(mesh[0] * mesh[1]):
+        m = make_host_mesh(*mesh, device_type="cpu")
+        cost = dryrun.trace_lm(get_config(arch), shape, m, mesh_axes(False))
+    print(json.dumps({"arch": arch, "mesh": list(mesh), "peak": cost.peak, "flops": cost.flops,
+                      "collectives": cost.collectives}))
 
 
 def lm_training_phase(dev) -> dict:
@@ -4571,6 +4591,44 @@ def dryrun_phase(dev) -> dict:
     if any(counts.values()):
         raise SystemExit(f"the dry run launched a kernel: {counts}")
     print(f"dry run path launches: {json.dumps(counts)} ({time.perf_counter() - t0:.1f} s)")
+    return counts
+
+
+# ------------------------------------------- phase 16: the sharded LM program
+def lm_sharded_phase(dev) -> dict:
+    """Phase 16: the sharded LM program on the card, as a world of one over
+    NCCL on a 1 x 1 mesh of the card (`tests/torch_lm_shard_ranks.card_of_one`;
+    gloo ranks sharing a card die on DTensor's all-gather of CUDA tensors
+    under torch 2.11, ROADMAP queue 3): REDUCED llama3.2-1b, olmoe-1b-7b and
+    hymba-1.5b in f32, prefill, 3 greedy decode steps and a train step on the
+    mesh against no mesh (the gloo test's tolerances); each state after one
+    step saved sharded and restored with its `state_shardings` onto the mesh
+    and with none, both bit for bit, and one more step from it against the
+    uninterrupted one. The worlds of 2 and 4 ranks run in the four-card tests
+    of `tests/test_torch_cuda.py`. Returns its launch counts of the port's
+    kernels (none)."""
+    from repro_torch.kernels import launch_counts as read_counts
+    from repro_torch.kernels import reset_launch_counts as zero_counts
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_lm_shard_ranks as ranks
+
+    t0 = time.perf_counter()
+    zero_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_shard_") as out:
+        gaps = ranks.card_of_one(out, dev)
+    print(f"lm shard 16: a world of one over NCCL on a 1 x 1 mesh of the card, "
+          f"{len(ranks.ARCHS)} REDUCED archs at f32: prefill, {ranks.DECODE_STEPS} decode "
+          f"steps and a train step on the mesh within the gloo test's tolerances of no "
+          f"mesh (decode logits within {gaps['decode']:.3e}, tokens equal); each state "
+          f"saved sharded and restored with state_shardings and with none bit for bit; "
+          f"the next step from it within {gaps['restored_step']:.3e} of the "
+          f"uninterrupted one. The four-card runs (NCCL, one card a rank) are "
+          f"`pytest -m cuda -k 'lm_ and cards' tests/test_torch_cuda.py` on four cards")
+    counts = read_counts()
+    if any(counts.values()):
+        raise SystemExit(f"the sharded LM phase launched a kernel: {counts}")
+    print(f"lm sharded path launches: {json.dumps(counts)} ({time.perf_counter() - t0:.1f} s)")
     return counts
 
 

@@ -54,11 +54,13 @@ from repro_torch.roofline.analysis import CostMode, RooflineReport, analyze_trac
 from repro_torch.sharding.rules import (
     P,
     MeshAxes,
+    NamedSharding,
     mesh_sizes,
     param_specs,
     placements,
     serve_cache_specs,
     set_mesh_context,
+    state_shardings,
 )
 
 OUT_ROOT = os.path.join(os.path.dirname(__file__), "..", "..", "..", "experiments",
@@ -108,15 +110,16 @@ def _batch_spec(leaf: torch.Tensor, mesh, axes: MeshAxes) -> P:
 
 
 def _sharded_like(tree, specs, mesh):
-    """Every meta tensor leaf of ``tree`` as a DTensor of its spec whose
-    local shard is a fresh meta tensor (nothing of the global one kept)."""
+    """Every meta tensor leaf of ``tree`` as a DTensor of its spec (or
+    `NamedSharding`) whose local shard is a fresh meta tensor (nothing of
+    the global one kept)."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
     def one(leaf, spec):
         if not isinstance(leaf, torch.Tensor):
             return leaf
-        pl = placements(spec, mesh)
+        pl = spec.placements if isinstance(spec, NamedSharding) else placements(spec, mesh)
         shape, _ = compute_local_shape_and_global_offset(leaf.shape, mesh, pl)
         local = torch.empty(shape, dtype=leaf.dtype, device="meta")
         return DTensor.from_local(local, mesh, pl, run_check=False, shape=leaf.shape,
@@ -153,7 +156,8 @@ def trace_lm(cfg, shape: ShapeSpec, mesh, axes: MeshAxes) -> CostMode:
     with set_mesh_context(mesh, axes):
         if shape.kind == "train":
             oc = OptConfig(schedule="wsd" if cfg.name == "minicpm-2b" else "cosine")
-            state = TrainState(params, adamw_init(params, oc))
+            state = TrainState(meta, adamw_init(meta, oc))
+            state = _sharded_like(state, state_shardings(state, mesh, axes), mesh)
             step = make_train_step(cfg, oc, TrainConfig(remat=True))
             with cost:
                 cost.track(state, batch)

@@ -51,6 +51,7 @@ from repro_torch.sharding.rules import (
     fit_spec,
     max_across,
     on_shards,
+    set_mesh_context,
     spec_of,
     sum_across,
 )
@@ -349,7 +350,11 @@ def _attention(bp, cfg: ModelConfig, x, positions, window: int, q_chunk=512, kv_
     q = heads_proj(xn, bp["wq"])
     k = heads_proj(xn, bp["wk"])
     v = heads_proj(xn, bp["wv"])
-    cos, sin = L.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    # the angles as replicated DTensors under a mesh: the rope's backward
+    # then multiplies DTensors only, which needs no implicit replication on
+    # the thread that runs it (on CUDA, the autograd engine's own)
+    cos, sin = (constrain(t, P()) for t in L.rope_angles(positions, cfg.head_dim,
+                                                          cfg.rope_theta))
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
     out = attend(q, k, v, positions, window, q_chunk=q_chunk, kv_chunk=kv_chunk)
@@ -452,10 +457,22 @@ def hybrid_block(bp, cfg: ModelConfig, x, positions, window):
 
 
 def _call(block, remat: bool, *args):
-    """One block call, under a non-reentrant checkpoint with ``remat``."""
-    if remat:
+    """One block call, under a non-reentrant checkpoint with ``remat``. The
+    backward's recompute runs the block again under the mesh of the forward:
+    on CUDA the autograd engine runs a backward on its own device thread,
+    which the ambient mesh (a contextvar) does not reach, and the block would
+    then run its per-shard computations on DTensors."""
+    if not remat:
+        return block(*args)
+    ctx = current_mesh_axes()
+    if ctx is None:
         return checkpoint(block, *args, use_reentrant=False)
-    return block(*args)
+
+    def under_mesh(*a):
+        with set_mesh_context(*ctx):
+            return block(*a)
+
+    return checkpoint(under_mesh, *args, use_reentrant=False)
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict,

@@ -58,14 +58,19 @@ _CTX: contextvars.ContextVar[tuple[Any, MeshAxes] | None] = contextvars.ContextV
 
 @contextlib.contextmanager
 def set_mesh_context(mesh, axes: MeshAxes):
-    """Run the body with ``mesh`` ambient (a `DeviceMesh`)."""
-    from torch.distributed.tensor.experimental import implicit_replication
+    """Run the body with ``mesh`` ambient (a `DeviceMesh`), plain tensors
+    met by DTensor ops taken as replicated (DTensor's implicit replication,
+    restored to its state before on exit, so that the contexts nest)."""
+    from torch.distributed.tensor import DTensor
 
+    dispatcher = DTensor._op_dispatcher
     token = _CTX.set((mesh, axes))
+    was = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
     try:
-        with implicit_replication():
-            yield
+        yield
     finally:
+        dispatcher._allow_implicit_replication = was
         _CTX.reset(token)
 
 
@@ -370,35 +375,145 @@ def param_specs(params: Any, mesh, axes: MeshAxes) -> Any:
                           params)
 
 
+def contiguous_stride(shape) -> tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape`` (as torch gives them)."""
+    stride, step = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(step)
+        step *= max(int(n), 1)
+    return tuple(reversed(stride))
+
+
+def local_slices(shape, mesh, pl) -> tuple[slice, ...]:
+    """This rank's slice of a tensor of global ``shape`` laid out as the
+    placements ``pl`` on ``mesh`` (uneven splits as DTensor makes them)."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    local, offset = compute_local_shape_and_global_offset(tuple(shape), mesh, pl)
+    return tuple(slice(o, o + n) for o, n in zip(offset, local))
+
+
+def from_whole(x: Tensor, mesh, pl) -> Tensor:
+    """``x``, a whole tensor every rank holds alike, as a DTensor of the
+    placements ``pl``: this rank copies out its own slice and sends nothing
+    (as `jax.device_put` of a host array in a multi-process run). The
+    slice is a copy, so ``x`` can be freed."""
+    from torch.distributed.tensor import DTensor
+
+    local = x[local_slices(x.shape, mesh, pl)].clone(memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, mesh, pl, run_check=False, shape=x.shape,
+                              stride=contiguous_stride(x.shape))
+
+
+CHECKSUM_CHUNK = 1 << 24  # elements of a leaf `_checksum` reads at a time
+
+
+def _checksum(t: Tensor) -> Tensor:
+    """A 0-d int64 of ``t``'s bit patterns, each weighted by its place in its
+    chunk of CHECKSUM_CHUNK elements and summed (wrapping): equal for equal
+    leaves, on any device. Read a chunk at a time, so no whole int64 copy of
+    a leaf is made."""
+    flat = t.detach().reshape(-1)
+    if flat.dtype == torch.bool:
+        flat = flat.view(torch.uint8)
+    bits = flat.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                      8: torch.int64}[flat.element_size()])
+    weight = torch.arange(1, min(CHECKSUM_CHUNK, bits.numel()) + 1, dtype=torch.int64,
+                          device=t.device)
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    for i in range(0, bits.numel(), CHECKSUM_CHUNK):
+        chunk = bits[i:i + CHECKSUM_CHUNK].to(torch.int64)
+        total += (chunk * weight[:chunk.numel()]).sum()
+    return total
+
+
+def check_ranks_agree(tree: Any, mesh) -> None:
+    """Raises ValueError unless every rank of ``mesh`` holds the same values
+    in each tensor leaf of ``tree`` (meta leaves aside): one all-gather of a
+    checksum a leaf (`_checksum`). `distribute_tree` copies each rank's
+    slice of what that rank holds, so ranks that drew other weights or
+    another batch would otherwise make one DTensor of unrelated shards."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if mesh.size() == 1:
+        return
+    named = []
+    _map_with_path(lambda path, leaf: named.append((path, leaf))
+                   if isinstance(leaf, Tensor) and not leaf.is_meta else None, tree)
+    if not named:
+        return
+    sums = torch.stack([_checksum(t).to(mesh.device_type) for _, t in named])
+    local = sums.reshape((1,) * mesh.ndim + (len(named),))
+    whole = DTensor.from_local(local, mesh, [Shard(d) for d in range(mesh.ndim)],
+                               run_check=False).full_tensor().reshape(-1, len(named))
+    differ = (whole != whole[0]).any(dim=0).nonzero().flatten().tolist()
+    if differ:
+        paths = [named[i][0] or "<the tree itself>" for i in differ]
+        raise ValueError(f"the ranks of the mesh hold different values in {len(paths)} "
+                         f"leaves, first {paths[:5]}: every rank must lay out the same tree")
+
+
 def distribute_tree(tree: Any, specs: Any, mesh) -> Any:
     """Every tensor leaf of ``tree`` as a DTensor on ``mesh`` laid out per
     its spec in ``specs`` (a tree of the same structure); other leaves as
-    they are. A meta leaf gives a meta local shard, nothing allocated."""
-    from torch.distributed.tensor import distribute_tensor
+    they are. Every rank must hold the same ``tree``: this is checked first
+    (`check_ranks_agree`, one all-gather of a checksum a leaf), and then
+    each rank copies out its own slice with no further collective
+    (`from_whole`). The dicts of ``tree`` are updated in place, each whole
+    leaf replaced by its DTensor as soon as that is made, so that beside its
+    shards a rank holds the whole leaves not yet laid out and no more: a
+    caller that wants the whole leaves afterwards keeps a copy of the tree.
+    A meta leaf gives a meta local shard, nothing allocated."""
 
-    def one(path, leaf):
-        if not isinstance(leaf, Tensor):
-            return leaf
-        spec = _get(specs, path)
-        return distribute_tensor(leaf, mesh, placements(spec, mesh))
+    def walk(t, s):
+        if isinstance(t, dict):
+            for k in t:
+                t[k] = walk(t[k], s[k])
+            return t
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(walk(v, sv) for v, sv in zip(t, s)))
+        if isinstance(t, tuple):
+            return tuple(walk(v, sv) for v, sv in zip(t, s))
+        if not isinstance(t, Tensor):
+            return t
+        return from_whole(t, mesh, placements(s, mesh))
 
-    return _map_with_path(one, tree)
-
-
-def _get(tree: Any, path: str):
-    for key in path.split("/") if path else ():
-        if isinstance(tree, dict):
-            tree = tree[key]
-        elif hasattr(tree, "_fields"):
-            tree = getattr(tree, key)
-        else:
-            tree = tree[int(key)]
-    return tree
+    check_ranks_agree(tree, mesh)
+    return walk(tree, specs)
 
 
 def param_shardings(params: Any, mesh, axes: MeshAxes) -> Any:
-    """``params`` distributed over ``mesh`` per the rules (`param_specs`)."""
+    """``params`` distributed over ``mesh`` per the rules (`param_specs`)
+    with `distribute_tree`: every rank must hold the same weights (checked,
+    ValueError otherwise), and ``params``' own dicts are rewritten in place,
+    their whole leaves replaced by DTensors, so the caller's tree is the
+    result (``params = param_shardings(params, mesh, axes)``)."""
     return distribute_tree(params, param_specs(params, mesh, axes), mesh)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh: the port's counterpart of `jax.sharding.NamedSharding`,
+    the leaf of a layout tree (`state_shardings`, `restore_checkpoint`)."""
+
+    mesh: Any
+    spec: P
+
+    @property
+    def placements(self) -> tuple:
+        return placements(self.spec, self.mesh)
+
+
+def state_shardings(state: Any, mesh, axes: MeshAxes) -> Any:
+    """The layout tree of a `TrainState` (meta tensors are enough): the
+    params per `param_specs`, the AdamW moments ``m`` and ``v`` as their
+    params, ``step`` replicated; each leaf a `NamedSharding` on ``mesh``.
+    Counterpart of the reference's ``launch/dryrun.py::_state_shardings``;
+    the layout `adamw_init` gives a fresh state of sharded params."""
+    p = _map_with_path(lambda path, leaf: NamedSharding(mesh, _leaf_spec(
+        path, tuple(leaf.shape), mesh, axes)), state.params)
+    opt = state.opt._replace(step=NamedSharding(mesh, P()), m=p, v=p)
+    return state._replace(params=p, opt=opt)
 
 
 def serve_cache_specs(cache: Any, mesh, axes: MeshAxes, batch: int) -> Any:

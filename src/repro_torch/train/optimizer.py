@@ -12,9 +12,11 @@ Optimizer state dtype is configurable: f32 moments by default; ``m_dtype`` /
 ``v_dtype`` can be bf16 for memory-constrained runs.
 
 Sharded leaves (DTensors, under `repro_torch.sharding`'s mesh): the moments
-take each parameter's layout, the global norm sums every shard (its f32
-sums are all-reduced), and the elementwise update runs on each rank's local
-shard, its gradient first laid out as its parameter.
+take each parameter's layout and the step count is replicated on their mesh
+(`sharding.state_shardings`, the layout a restored checkpoint takes), the
+global norm sums every shard (its f32 sums are all-reduced), and the
+elementwise update runs on each rank's local shard, its gradient first laid
+out as its parameter.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import math
 from typing import Any, Callable, NamedTuple
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 
 Tensor = torch.Tensor
 
@@ -101,8 +103,13 @@ def adamw_init(params: Any, cfg: OptConfig) -> AdamWState:
                         params)
 
     leaf = tree_leaves(params)[0]
-    dev = leaf.to_local().device if hasattr(leaf, "to_local") else leaf.device
-    step = torch.zeros((), dtype=torch.int32, device=dev)
+    if isinstance(leaf, DTensor):  # sharded params: the count replicated on their mesh
+        mesh = leaf.device_mesh
+        step = DTensor.from_local(
+            torch.zeros((), dtype=torch.int32, device=leaf.to_local().device), mesh,
+            [Replicate()] * mesh.ndim, run_check=False)
+    else:
+        step = torch.zeros((), dtype=torch.int32, device=leaf.device)
     return AdamWState(step=step, m=zeros(cfg.m_dtype), v=zeros(cfg.v_dtype))
 
 
@@ -135,7 +142,8 @@ def adamw_update(
 ) -> tuple[Any, AdamWState, dict]:
     """One AdamW step. Returns (new params, new state, {"grad_norm", "lr"});
     the inputs are left as they were."""
-    step = state.step + 1
+    count = state.step.to_local() if isinstance(state.step, DTensor) else state.step
+    step = count + 1
     gnorm = global_norm(grads)
     scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
              if cfg.grad_clip else 1.0)
@@ -165,7 +173,11 @@ def adamw_update(
     if isinstance(gnorm, DTensor):
         gnorm = gnorm_r
     pick = lambda i: tree_map(lambda t: t[i], out)  # noqa: E731
-    return pick(0), AdamWState(step, pick(1), pick(2)), {"grad_norm": gnorm, "lr": lr}
+    new_step = step
+    if isinstance(state.step, DTensor):
+        new_step = DTensor.from_local(step, state.step.device_mesh, state.step.placements,
+                                      run_check=False)
+    return pick(0), AdamWState(new_step, pick(1), pick(2)), {"grad_norm": gnorm, "lr": lr}
 
 
 def _upd_sharded(upd, p, g, m, v):

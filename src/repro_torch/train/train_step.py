@@ -3,8 +3,10 @@
 Counterpart of `repro.train.train_step`. `make_train_step` builds the step
 used by the trainer: ``torch.autograd.grad`` of `lm_loss` (each block
 checkpointed with ``remat``) with respect to every parameter leaf, then the
-AdamW update. The port has no mesh for these models yet, so there are no
-sharding constraints.
+AdamW update. Under a mesh (`repro_torch.sharding.set_mesh_context`, the
+state laid out by `sharding.param_shardings` and `adamw_init`, or restored
+with `sharding.state_shardings`) the same step runs as one program on every
+rank, its sharding constraints in the models.
 
 `make_mvs_train_step` is the paper's technique transplanted to LM training:
 a cheap forward pass yields per-sequence losses; sequences are

@@ -49,7 +49,24 @@ bit for bit at bits 1-8, at the edges of its row tiles, from payload views
 that are not 16-byte aligned, at 8 bits with a missing symbol below 255 and
 at the page shapes the paths decode; two decodes are equal and every call is
 one launch, whichever path inside the kernel it takes.
+
+The LM models sharded over cards (`torch_lm_shard_ranks.run_cards`, one
+card a rank over NCCL; skipped on fewer than four cards): REDUCED
+llama3.2-1b, olmoe-1b-7b and hymba-1.5b in f32 on a 2 x 2 mesh, prefill, 3
+greedy decode steps and a train step against one rank on a card at the
+gloo test's tolerances; phi3-mini-3.8b at full width and olmoe-1b-7b at its
+16 layers on the mesh the dry run picks (the lowest per-device peak of 2 x
+2, 4 x 1 and 1 x 4, 2 x 2 where they tie): an f32 hold on tempered weights
+against one card's `value_and_grad` (loss 1e-5, grad norm 1e-4; olmoe on 4
+layers), 3 bf16 steps with finite losses, step 1 within 1e-2 of one card's
+loss, each rank's peak within 25% of the dry run's, and phi3's state after
+step 2 restored onto another four-card mesh bit for bit. Two NCCL ranks on
+one card are refused when they ask for a mesh.
 """
+import json
+import math
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1355,3 +1372,188 @@ def test_fit_sharded_one_card_a_rank(dev, tmp_path, backend):
         print(f"{backend} rank {r}: {float(got[r]['per_tree_s']):.4f} s a tree, all-reduce "
               f"{float(got[r]['all_reduce_s']):.4f} s and {int(got[r]['all_reduce_bytes'])} B "
               f"a tree; split nodes equal to a world of one's {np.mean(same):.4f}")
+
+
+# ---------------------------------------------------------------- LM on cards
+LM_CARDS = 4
+# the four-card mesh, and the one phi3's checkpoint restores onto: the dry
+# run's per-device peaks on 2 x 2, 4 x 1 and 1 x 4 tie within 0.1% for both
+# archs (PERF.md §6, PR 29), and 2 x 2 is taken on a tie
+LM_MESH, LM_OTHER_MESH = (2, 2), (4, 1)
+LM_PEAK_RTOL = 0.25  # each rank's peak against the dry run's (phase 15 (b)'s rule)
+LM_F32_LOSS_RTOL = 1e-5  # chip_smoke.py's TRAIN_LOSS_RTOL
+LM_F32_GNORM_RTOL = 1e-4  # chip_smoke.py's TRAIN_GNORM_RTOL
+LM_BF16_LOSS_RTOL = 1e-2  # step 1's bf16 loss against one card's
+# step 1's bf16 grad norm against one card's: each of the two bf16 runs may
+# sit as far from the f32 grad norm of the same weights as one card's does,
+# so they are held within twice that distance
+LM_BF16_GNORM_GAPS = 2
+LM_CARDS_DEADLINE_S = 1000
+
+
+def _plan() -> dict:
+    """For each full-width arch, the dry run of a 4 x 512 bf16 step on
+    LM_MESH (`chip_smoke.train_peak_reckoned`, one host process an arch,
+    started together): its per-device peak, FLOPs and collectives, beside
+    the meshes to train on and to restore onto."""
+    import subprocess
+    import sys
+
+    import torch_lm_shard_ranks as ranks
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"), OMP_NUM_THREADS="1")
+    procs = {
+        arch: subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.train_peak_reckoned("
+             f"{arch!r}, {LM_MESH!r})"], cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        for arch in ranks.FULL_ARCHS
+    }
+    plan = {}
+    for arch, proc in procs.items():
+        out, err = proc.communicate(timeout=600)
+        assert proc.returncode == 0, err[-2000:]
+        cost = json.loads(out.strip().splitlines()[-1])
+        plan[arch] = {"mesh": LM_MESH, "other_mesh": LM_OTHER_MESH, "peak": cost["peak"],
+                      "flops": cost["flops"], "collectives": cost["collectives"]}
+        print(f"{arch}: dry-run peak a device on {LM_MESH}: {cost['peak']} B")
+    return plan
+
+
+@pytest.fixture(scope="module")
+def lm_four_cards(tmp_path_factory):
+    """`torch_lm_shard_ranks.run_cards` on four cards over NCCL, one card a
+    rank (skips on fewer): the results directory and the plan."""
+    import time
+
+    import torch.multiprocessing as mp
+    import torch_lm_shard_ranks as ranks
+
+    if torch.cuda.device_count() < LM_CARDS:
+        pytest.skip("needs four cards")
+    out = tmp_path_factory.mktemp("lm_cards")
+    plan = _plan()
+    (out / "plan.json").write_text(json.dumps(plan))
+    t0 = time.monotonic()
+    ctx = mp.start_processes(
+        ranks.run_cards, args=(LM_CARDS, str(out / "store"), str(out), "nccl"),
+        nprocs=LM_CARDS, join=False, start_method="spawn",
+    )
+    for proc in ctx.processes:
+        proc.join(timeout=max(0.0, t0 + LM_CARDS_DEADLINE_S - time.monotonic()))
+    codes = [p.exitcode for p in ctx.processes]
+    for proc in ctx.processes:
+        if proc.is_alive():
+            proc.kill()
+    assert codes == [0] * LM_CARDS, codes
+    print(f"four-card ranks: {time.monotonic() - t0:.1f} s")
+    return out, plan
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "olmoe-1b-7b", "hymba-1.5b"])
+def test_lm_four_cards_match_one_rank(lm_four_cards, arch):
+    """REDUCED f32 on a 2 x 2 mesh of four cards over NCCL: prefill, 3 greedy
+    decode steps and a train step held against one rank on a card at the
+    gloo test's tolerances; a second run on the mesh printed bit for bit or not."""
+    import torch_lm_shard_ranks as ranks
+
+    out, _ = lm_four_cards
+    one = torch.device("cuda", 0)
+    want = ranks.compute(arch, device=one)
+    floor = max(ranks.TOL, ranks.f32_floor(arch, one))
+    for rank in range(LM_CARDS):
+        got = dict(np.load(out / f"cards_{arch}_r{rank}.npz"))
+        dec = ranks.check_against_one_rank(got, want, floor, f"{arch} card {rank}")
+        print(f"{arch} card {rank}: loss {float(got['loss'])!r} (one rank "
+              f"{float(want['loss'])!r}), decode logits within {dec:.3e}, tokens "
+              f"{got['decode_tokens'].T.tolist()}, a second run bit for bit: "
+              f"{bool(got['repeat_equal'])}")
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "olmoe-1b-7b"])
+def test_lm_full_width_trains_on_four_cards(lm_four_cards, arch):
+    """Full width and depth over NCCL: the f32 hold (loss 1e-5, grad norm
+    1e-4 against one card), 3 bf16 steps with finite losses, step 1 within
+    1e-2 of one card's loss and its grad norm within LM_BF16_GNORM_GAPS of
+    one card's bf16 distance from f32, each rank's peak within 25% of the
+    dry run's; prints ms a step, the FLOP bound and the NCCL share of a
+    profiled step."""
+    import torch_lm_shard_ranks as ranks
+
+    out, plan = lm_four_cards
+    bound_ms = plan[arch]["flops"] / ranks.BF16_PEAK_FLOPS * 1e3
+    for rank in range(LM_CARDS):
+        r = json.loads((out / f"cards_full_{arch}_r{rank}.json").read_text())
+        for key, rtol in (("loss", LM_F32_LOSS_RTOL), ("grad_norm", LM_F32_GNORM_RTOL)):
+            one, sharded = r[f"f32_one_card_{key}"], r[f"f32_sharded_{key}"]
+            assert abs(sharded - one) <= rtol * abs(one), (arch, rank, key, sharded, one)
+        assert all(math.isfinite(v) for v in r["losses"] + r["grad_norms"]), r
+        first, one = r["losses"][0], r["bf16_one_card_loss"]
+        assert abs(first - one) <= LM_BF16_LOSS_RTOL * abs(one), (arch, rank, first, one)
+        g1, g_one = r["grad_norms"][0], r["bf16_one_card_grad_norm"]
+        g_f32 = r["f32_one_card_bf16_weights_grad_norm"]
+        assert abs(g1 - g_one) <= LM_BF16_GNORM_GAPS * abs(g_one - g_f32), (arch, rank, g1,
+                                                                           g_one, g_f32)
+        peak = max(r["peak_bytes"])
+        err = abs(plan[arch]["peak"] - peak) / peak
+        assert err <= LM_PEAK_RTOL, (arch, rank, peak, plan[arch]["peak"])
+        step_ms = float(np.median(r["step_s"][1:])) * 1e3
+        prof = r["profiled"]
+        print(f"{arch} card {rank} ({r['device']}), mesh {r['mesh']}: f32 hold "
+              f"({r['f32_layers']} layers) loss {r['f32_sharded_loss']!r} vs one card "
+              f"{r['f32_one_card_loss']!r}, grad norm {r['f32_sharded_grad_norm']!r} vs "
+              f"{r['f32_one_card_grad_norm']!r}; bf16 losses {r['losses']!r} (one card "
+              f"{one!r}), grad norms {r['grad_norms']!r} (one card {g_one!r}; in f32 on the "
+              f"same weights {g_f32!r}, loss {r['f32_one_card_bf16_weights_loss']!r}); "
+              f"step_ms {step_ms:.1f} (median of steps 2-{len(r['step_s'])}, "
+              f"{[round(s * 1e3, 1) for s in r['step_s']]}) "
+              f"flop_bound_ms {bound_ms:.3f} (dry-run FLOPs a device over 989 TFLOP/s); "
+              f"profiled step {prof['wall_ms']:.1f} ms, busy {prof['busy_ms']:.1f} ms, NCCL "
+              f"{prof['nccl_ms']:.1f} ms (share {prof['nccl_ms'] / prof['wall_ms']:.3f}); "
+              f"peak {peak} B vs dry run {plan[arch]['peak']} B (rel {err:.4f}); set-up peak "
+              f"{r['setup_peak_bytes']} B, state {r['state_bytes']} B")
+
+
+def test_lm_checkpoint_crosses_meshes_on_four_cards(lm_four_cards):
+    """phi3-mini-3.8b's state after step 2, saved on its mesh, restores onto
+    another four-card mesh with every gathered leaf bit for bit the saved
+    one; step 3 there gives a finite loss. Prints the seconds and bytes."""
+    import torch_lm_shard_ranks as ranks
+
+    out, plan = lm_four_cards
+    arch = ranks.CKPT_ARCH
+    for rank in range(LM_CARDS):
+        r = json.loads((out / f"cards_full_{arch}_r{rank}.json").read_text())
+        assert r["restored_unequal"] == [] and r["restored_at"] == 2, r["restored_unequal"]
+        assert r["restored_sharded_leaves"] > 0
+        assert math.isfinite(r["restored_step_loss"])
+        print(f"{arch} card {rank}: {plan[arch]['mesh']} -> {plan[arch]['other_mesh']}: "
+              f"checkpoint {r['ckpt_bytes']} B saved in {r['save_s']:.2f} s, restored in "
+              f"{r['restore_s']:.2f} s, {r['restored_sharded_leaves']} leaves sharded; step 3 "
+              f"loss there {r['restored_step_loss']!r} (on the first mesh "
+              f"{r['losses'][2]!r})")
+
+
+def test_nccl_ranks_sharing_a_card_raise(dev, tmp_path):
+    """Two NCCL ranks on one card: making the mesh raises on both, before
+    any NCCL call; neither falls back to sharing the card."""
+    import time
+
+    import torch.multiprocessing as mp
+    import torch_lm_shard_ranks as ranks
+
+    ctx = mp.start_processes(ranks.run_shared_card, args=(2, str(tmp_path / "store"),
+                                                          str(tmp_path)),
+                             nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + 120
+    for proc in ctx.processes:
+        proc.join(timeout=max(0.0, deadline - time.monotonic()))
+    codes = [p.exitcode for p in ctx.processes]
+    for proc in ctx.processes:
+        if proc.is_alive():
+            proc.kill()
+    assert codes == [0, 0], codes
+    for r in range(2):
+        msg = (tmp_path / f"shared_r{r}.txt").read_text()
+        assert "are on one card" in msg, msg
