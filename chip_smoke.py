@@ -4372,23 +4372,33 @@ def lm_train_examples() -> None:
                 proc.wait()
 
 
-def train_peak_reckoned(arch: str, mesh: tuple[int, int] = (1, 1)) -> None:
+def train_peak_reckoned(arch: str, mesh: tuple[int, int] = (1, 1),
+                        layers: int | None = None) -> None:
     """Prints the dry run of one training step of ``arch`` at TRAIN_BATCH x
     TRAIN_SEQ in bf16 on a ``(data, model)`` mesh (a fake world of its size,
     meta tensors, on the host) as one JSON line: the per-device peak
-    estimate, FLOPs and collective bytes. The one-time reckoning behind
-    TRAIN_FULL (1 x 1), run by hand with no card, e.g. ``PYTHONPATH=src
-    python3 -c "import chip_smoke; chip_smoke.train_peak_reckoned('phi3-mini-3.8b')"``,
-    and the choice of mesh of the four-card runs (`tests/test_torch_cuda.py`)."""
+    estimate, FLOPs and collective bytes. A vision model's batch holds its
+    ``n_patches`` patch positions beside the TRAIN_SEQ tokens. ``layers``
+    cuts the depth (full width). The one-time reckoning behind TRAIN_FULL
+    (1 x 1), run by hand with no card, e.g. ``PYTHONPATH=src python3 -c
+    "import chip_smoke; chip_smoke.train_peak_reckoned('phi3-mini-3.8b')"``,
+    and the plan of the four-card runs (`tests/test_torch_cuda.py`)."""
+    import dataclasses
+
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_host_mesh, mesh_axes
 
-    shape = ShapeSpec(f"train_{TRAIN_BATCH}x{TRAIN_SEQ}", "train", TRAIN_SEQ, TRAIN_BATCH)
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    seq = TRAIN_SEQ + (cfg.n_patches if cfg.frontend == "vision" else 0)
+    shape = ShapeSpec(f"train_{TRAIN_BATCH}x{seq}", "train", seq, TRAIN_BATCH)
     with dryrun.fake_world(mesh[0] * mesh[1]):
         m = make_host_mesh(*mesh, device_type="cpu")
-        cost = dryrun.trace_lm(get_config(arch), shape, m, mesh_axes(False))
-    print(json.dumps({"arch": arch, "mesh": list(mesh), "peak": cost.peak, "flops": cost.flops,
+        cost = dryrun.trace_lm(cfg, shape, m, mesh_axes(False))
+    print(json.dumps({"arch": arch, "mesh": list(mesh), "layers": cfg.n_layers,
+                      "peak": cost.peak, "flops": cost.flops,
                       "collectives": cost.collectives}))
 
 
@@ -4599,9 +4609,11 @@ def lm_sharded_phase(dev) -> dict:
     """Phase 16: the sharded LM program on the card, as a world of one over
     NCCL on a 1 x 1 mesh of the card (`tests/torch_lm_shard_ranks.card_of_one`;
     gloo ranks sharing a card die on DTensor's all-gather of CUDA tensors
-    under torch 2.11, ROADMAP queue 3): REDUCED llama3.2-1b, olmoe-1b-7b and
-    hymba-1.5b in f32, prefill, 3 greedy decode steps and a train step on the
-    mesh against no mesh (the gloo test's tolerances); each state after one
+    under torch 2.11, ROADMAP queue 3): the ten REDUCED archs
+    (`torch_lm_shard_ranks.ARCHS`, each with its own batch: codes for
+    musicgen, patch embeddings for llava) in f32, prefill, 3 greedy decode
+    steps and a train step on the mesh against no mesh (the gloo test's
+    tolerances); each state after one
     step saved sharded and restored with its `state_shardings` onto the mesh
     and with none, both bit for bit, and one more step from it against the
     uninterrupted one. The worlds of 2 and 4 ranks run in the four-card tests
@@ -4623,8 +4635,10 @@ def lm_sharded_phase(dev) -> dict:
           f"mesh (decode logits within {gaps['decode']:.3e}, tokens equal); each state "
           f"saved sharded and restored with state_shardings and with none bit for bit; "
           f"the next step from it within {gaps['restored_step']:.3e} of the "
-          f"uninterrupted one. The four-card runs (NCCL, one card a rank) are "
-          f"`pytest -m cuda -k 'lm_ and cards' tests/test_torch_cuda.py` on four cards")
+          f"uninterrupted one. The four-card runs (NCCL, one card a rank; llava-next-34b "
+          f"and moonshot-v1-16b-a3b trained at full width) are `pytest -m cuda -k 'lm_ "
+          f"and cards' tests/test_torch_cuda.py` on four cards, the second-card "
+          f"launches `-k second_card`")
     counts = read_counts()
     if any(counts.values()):
         raise SystemExit(f"the sharded LM phase launched a kernel: {counts}")

@@ -5,8 +5,11 @@ library with a plain C interface (``-gencode=arch=compute_90a,code=sm_90a``),
 all processes started together, and loaded with `ctypes`. No source includes
 PyTorch's headers, so a build takes seconds rather than the minutes a
 `torch.utils.cpp_extension` build of the same code would. The wrappers pass
-raw device pointers (``tensor.data_ptr()``) and the current stream as Python
-ints declared ``c_void_p``.
+raw device pointers (``tensor.data_ptr()``), then the index of the tensors'
+device and its current stream (`_checks.launch_target`): each entry point
+makes that device current for its launch and restores the calling thread's
+own (``csrc/device_guard.cuh``), so a launch runs on its tensors' card from
+any thread, whatever device the thread has current.
 
 Libraries go to ``build/torch_kernels/`` at the repository root, named by a
 hash of their source, the local headers it includes (``#include "..."``)
@@ -37,21 +40,24 @@ NVCC_FLAGS = (
     "-fPIC",
     "-Xptxas",
     "-v",
+    "-ldl",  # device_guard.cuh looks up a libcuda symbol with dlsym
 )
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-# argtypes of each library's C entry point (see the extern "C" functions)
+# argtypes of each library's C entry point (see the extern "C" functions);
+# each ends with the device index and the stream
+LAUNCH_TARGET = [_I, _P]
 SIGNATURES = {
     "histogram": ("hist_nodes_launch", [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
-                                        _I, _P, _I, _P]),
+                                        _I, _P, _I, *LAUNCH_TARGET]),
     "hist_window": ("hist_window_launch", [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
-                                           _P, _P, _P, _I, _P, _I, _P]),
+                                           _P, _P, _P, _I, _P, _I, *LAUNCH_TARGET]),
     "partition": ("partition_launch", [_P, _I, _L, _I, _P, _P, _P, _P, _P, _I, _P, _L, _I, _P,
-                                       _P]),
+                                       *LAUNCH_TARGET]),
     "forest": ("forest_launch", [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
-                                 _P, _P]),
-    "ellpack_bin": ("ellpack_bin_launch", [_P, _I, _L, _I, _P, _I, _P, _P, _P]),
-    "bitpack": ("bitpack_decode_launch", [_P, _L, _L, _L, _I, _I, _L, _P, _P]),
+                                 _P, *LAUNCH_TARGET]),
+    "ellpack_bin": ("ellpack_bin_launch", [_P, _I, _L, _I, _P, _I, _P, _P, *LAUNCH_TARGET]),
+    "bitpack": ("bitpack_decode_launch", [_P, _L, _L, _L, _I, _I, _L, _P, *LAUNCH_TARGET]),
 }
 
 _lock = threading.Lock()
@@ -140,10 +146,10 @@ def library(name: str) -> ctypes._CFuncPtr:
         return getattr(_libs[name], fn_name)
 
 
-def check(err: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error code."""
+def check(err: int, what: str, device) -> None:
+    """Raise if a launch on ``device`` returned a CUDA error code."""
     if err != 0:
         import torch
 
-        name = torch.cuda.get_device_name() if torch.cuda.is_available() else "no device"
-        raise RuntimeError(f"{what}: CUDA error {err} on {name}")
+        name = torch.cuda.get_device_name(device) if torch.cuda.is_available() else "no device"
+        raise RuntimeError(f"{what}: CUDA error {err} on {device} ({name})")

@@ -43,8 +43,19 @@ def require_cuda(t: torch.Tensor, what: str) -> None:
         )
 
 
-def stream_ptr(device: torch.device) -> int:
-    """The raw handle of ``device``'s current stream (without building a
-    `torch.cuda.Stream` object, which costs a few microseconds a launch)."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    return torch._C._cuda_getCurrentRawStream(index)
+def device_index(device: torch.device) -> int:
+    """The index of the CUDA device ``device`` names: its own, or for a bare
+    ``cuda`` the calling thread's current device's."""
+    if device.type != "cuda":
+        raise ValueError(f"a launch needs a CUDA device; got {device}")
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def launch_target(device: torch.device) -> tuple[int, int]:
+    """The last two arguments of every C entry point: ``device``'s index,
+    which the entry point makes current for its launch whatever device the
+    calling thread has current, and the raw handle of that device's current
+    stream (read without building a `torch.cuda.Stream` object, which costs
+    a few microseconds a launch)."""
+    index = device_index(device)
+    return index, torch._C._cuda_getCurrentRawStream(index)

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import require, require_cuda, stream_ptr
+from repro_torch.kernels._checks import launch_target, require, require_cuda
 
 launches = 0
 
@@ -61,8 +61,8 @@ def bitpack_decode(
     err = _build.library("bitpack")(
         payload.data_ptr(), rows, row_syms, row_bytes, bits,
         -1 if missing is None else int(missing), tile_rows(row_syms), out.data_ptr(),
-        stream_ptr(dev),
+        *launch_target(dev),
     )
-    _build.check(err, "bitpack_decode")
+    _build.check(err, "bitpack_decode", dev)
     launches += 1
     return out

@@ -57,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -66,7 +68,7 @@ constexpr int kPad = 16;         // read slack past a packed tile (aligned word 
 constexpr int kHeader = 128;     // the ring's mbarriers, before the buffers
 constexpr int kMaxBlocksPerSm = 4;
 constexpr int kDirectBlocksPerSm = 8;
-constexpr int kMaxDevices = 64;
+using guard::kMaxDevices;
 
 // n / d for 0 <= n < 2^31 and d >= 1: a round-up multiplier and a shift
 // (mul = ceil(2^p / d), p = 31 + ceil(log2 d)), exact over that range.
@@ -317,12 +319,9 @@ DeviceState g_state[kMaxDevices];
 
 template <int BITS>
 int launch(const uint8_t* payload, long rows, long row_syms, long row_bytes, int missing,
-           long tile_rows, uint8_t* out, cudaStream_t stream) {
+           long tile_rows, uint8_t* out, int dev, cudaStream_t stream) {
   if (tile_rows < 16 || tile_rows % 16 != 0) return (int)cudaErrorInvalidValue;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  cudaError_t err = cudaSuccess;
   DeviceState& st = g_state[dev];
   if (st.sms == 0) {
     err = cudaDeviceGetAttribute(&st.smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
@@ -370,20 +369,27 @@ int launch(const uint8_t* payload, long rows, long row_syms, long row_bytes, int
 // payload (rows, row_bytes) uint8 and out (rows, row_syms) uint8, both
 // row-major and contiguous; 1 <= bits <= 8, row_bytes == ceil(row_syms *
 // bits / 8); missing is the packed missing symbol, or -1 for none;
-// tile_rows (a multiple of 16) is the rows of one staged tile.
+// tile_rows (a multiple of 16) is the rows of one staged tile. The launch
+// runs on ``device``, the tensors' (guard::on_device), on its stream
+// stream_ptr.
 extern "C" int bitpack_decode_launch(const uint8_t* payload, long rows, long row_syms,
                                      long row_bytes, int bits, int missing, long tile_rows,
-                                     uint8_t* out, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  switch (bits) {
-    case 1: return launch<1>(payload, rows, row_syms, row_bytes, missing, tile_rows, out, stream);
-    case 2: return launch<2>(payload, rows, row_syms, row_bytes, missing, tile_rows, out, stream);
-    case 3: return launch<3>(payload, rows, row_syms, row_bytes, missing, tile_rows, out, stream);
-    case 4: return launch<4>(payload, rows, row_syms, row_bytes, missing, tile_rows, out, stream);
-    case 5: return launch<5>(payload, rows, row_syms, row_bytes, missing, tile_rows, out, stream);
-    case 6: return launch<6>(payload, rows, row_syms, row_bytes, missing, tile_rows, out, stream);
-    case 7: return launch<7>(payload, rows, row_syms, row_bytes, missing, tile_rows, out, stream);
-    case 8: return launch<8>(payload, rows, row_syms, row_bytes, missing, tile_rows, out, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                                     uint8_t* out, int device, void* stream_ptr) {
+  return guard::on_device(device, [&]() -> int {
+    cudaStream_t stream = (cudaStream_t)stream_ptr;
+#define BITPACK_LAUNCH(B) \
+  launch<B>(payload, rows, row_syms, row_bytes, missing, tile_rows, out, device, stream)
+    switch (bits) {
+      case 1: return BITPACK_LAUNCH(1);
+      case 2: return BITPACK_LAUNCH(2);
+      case 3: return BITPACK_LAUNCH(3);
+      case 4: return BITPACK_LAUNCH(4);
+      case 5: return BITPACK_LAUNCH(5);
+      case 6: return BITPACK_LAUNCH(6);
+      case 7: return BITPACK_LAUNCH(7);
+      case 8: return BITPACK_LAUNCH(8);
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef BITPACK_LAUNCH
+  });
 }

@@ -51,6 +51,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kMissingBin = 255;
@@ -60,7 +62,7 @@ constexpr int kStages = 3;
 constexpr int kMaxEdges = 1024;  // the wrapper's MAX_EDGES
 constexpr int kMaxLogP = 10;     // 2^10 = kMaxEdges
 constexpr size_t kSmemBudget = 200 * 1024;  // of the 227 KB a block may hold
-constexpr int kMaxDevices = 64;
+using guard::kMaxDevices;
 
 int g_resident[2][kMaxLogP + 1][kMaxDevices];  // [x is f64][log_p][device] blocks, once
 
@@ -240,15 +242,12 @@ __global__ void __launch_bounds__(kRowWarps * 4 * 32) bin_kernel(
 
 template <typename T, int kLogP>
 int launch(const void* x, long n_rows, int m, const float* edges, int max_bin,
-           const int32_t* n_bins, uint8_t* out, cudaStream_t stream) {
+           const int32_t* n_bins, uint8_t* out, int dev, cudaStream_t stream) {
   static_assert(kLogP <= kMaxLogP, "edge table wider than MAX_EDGES");
   constexpr int kSub = sub_tiles<T>(kLogP);
   constexpr int kThreads = kSub * kRowWarps * 32;
   constexpr int kStageRows = kRowWarps * vals_of<T>();
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  cudaError_t err = cudaSuccess;
   const size_t smem = kSub * ((table_bytes(kLogP) + 15) / 16 * 16) + ring_bytes<T>(kSub);
   // once per device: raise the shared-memory limit, read the resident
   // blocks an SM at this table width
@@ -279,12 +278,15 @@ int launch(const void* x, long n_rows, int m, const float* edges, int max_bin,
 
 template <typename T, int kLogP = 0>
 int dispatch(int log_p, const void* x, long n_rows, int m, const float* edges, int max_bin,
-             const int32_t* n_bins, uint8_t* out, cudaStream_t stream) {
+             const int32_t* n_bins, uint8_t* out, int dev, cudaStream_t stream) {
   if constexpr (kLogP > kMaxLogP) {
     return (int)cudaErrorInvalidValue;
   } else {
-    if (log_p == kLogP) return launch<T, kLogP>(x, n_rows, m, edges, max_bin, n_bins, out, stream);
-    return dispatch<T, kLogP + 1>(log_p, x, n_rows, m, edges, max_bin, n_bins, out, stream);
+    if (log_p == kLogP) {
+      return launch<T, kLogP>(x, n_rows, m, edges, max_bin, n_bins, out, dev, stream);
+    }
+    return dispatch<T, kLogP + 1>(log_p, x, n_rows, m, edges, max_bin, n_bins, out, dev,
+                                  stream);
   }
 }
 
@@ -292,14 +294,19 @@ int dispatch(int log_p, const void* x, long n_rows, int m, const float* edges, i
 
 // x: (n_rows, m) float32 (x_f64 == 0) or float64 (x_f64 == 1), row-major;
 // edges: (m, max_bin) float32, 1 <= max_bin <= 1024; n_bins: (m,) int32;
-// out: (n_rows, m) uint8.
+// out: (n_rows, m) uint8. The launch runs on ``device``, the tensors'
+// (guard::on_device), on its stream stream_ptr.
 extern "C" int ellpack_bin_launch(const void* x, int x_f64, long n_rows, int m,
                                   const float* edges, int max_bin,
-                                  const int32_t* n_bins, uint8_t* out,
+                                  const int32_t* n_bins, uint8_t* out, int device,
                                   void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
   if (max_bin < 1 || max_bin > kMaxEdges) return (int)cudaErrorInvalidValue;
-  const int log_p = search_log(max_bin);
-  if (x_f64) return dispatch<double>(log_p, x, n_rows, m, edges, max_bin, n_bins, out, stream);
-  return dispatch<float>(log_p, x, n_rows, m, edges, max_bin, n_bins, out, stream);
+  return guard::on_device(device, [&]() -> int {
+    cudaStream_t stream = (cudaStream_t)stream_ptr;
+    const int log_p = search_log(max_bin);
+    if (x_f64) {
+      return dispatch<double>(log_p, x, n_rows, m, edges, max_bin, n_bins, out, device, stream);
+    }
+    return dispatch<float>(log_p, x, n_rows, m, edges, max_bin, n_bins, out, device, stream);
+  });
 }

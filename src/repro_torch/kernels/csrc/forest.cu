@@ -54,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kMissingBin = 255;
@@ -61,7 +63,7 @@ constexpr int kRows = 256;            // rows a block owns, one thread each
 constexpr int kWalk = 4;              // trees a thread walks at once
 constexpr int kSmemBudget = 232448;   // 227 KB, the most a block may hold
 constexpr int kPackThreads = 256;
-constexpr int kMaxDevices = 64;
+using guard::kMaxDevices;
 
 enum Copy { kCopy16 = 0, kCopy4 = 1, kCopy1 = 2 };
 
@@ -307,12 +309,9 @@ template <typename BinT>
 int run(const void* bins_ptr, int n_rows, int m, const int32_t* feature,
         const int32_t* split_bin, const uint8_t* default_left, const uint8_t* is_leaf,
         const float* leaf_value, int n_trees, int n_nodes, int max_depth,
-        const float* margin_in, float* out, void* scratch, cudaStream_t stream) {
+        const float* margin_in, float* out, void* scratch, int dev, cudaStream_t stream) {
   using Rec = typename Node<BinT>::Rec;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  cudaError_t err = cudaSuccess;
   const BinT* bins = (const BinT*)bins_ptr;
   const int n_pad = (n_nodes + 3) / 4 * 4;
   Rec* recs = (Rec*)scratch;
@@ -377,17 +376,22 @@ int run(const void* bins_ptr, int n_rows, int m, const int32_t* feature,
 // records (8 bytes each for uint8 bins, 16 for int32) followed by as many
 // f32 leaves, 16-byte aligned; out: (n_rows,) f32. For uint8 bins
 // m <= 2^24 and n_nodes <= 2^23 (the record's fields); n_nodes >= 1,
-// n_rows >= 1: the wrapper checks.
+// n_rows >= 1: the wrapper checks. The launches run on ``device``, the
+// tensors' (guard::on_device), on its stream stream_ptr.
 extern "C" int forest_launch(const void* bins, int bins_u8, int n_rows, int m,
                              const int32_t* feature, const int32_t* split_bin,
                              const uint8_t* default_left, const uint8_t* is_leaf,
                              const float* leaf_value, int n_trees, int n_nodes,
                              int max_depth, const float* margin_in, float* out,
-                             void* scratch, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (bins_u8)
-    return run<uint8_t>(bins, n_rows, m, feature, split_bin, default_left, is_leaf, leaf_value,
-                        n_trees, n_nodes, max_depth, margin_in, out, scratch, stream);
-  return run<int32_t>(bins, n_rows, m, feature, split_bin, default_left, is_leaf, leaf_value,
-                      n_trees, n_nodes, max_depth, margin_in, out, scratch, stream);
+                             void* scratch, int device, void* stream_ptr) {
+  return guard::on_device(device, [&]() -> int {
+    cudaStream_t stream = (cudaStream_t)stream_ptr;
+    if (bins_u8)
+      return run<uint8_t>(bins, n_rows, m, feature, split_bin, default_left, is_leaf,
+                          leaf_value, n_trees, n_nodes, max_depth, margin_in, out, scratch,
+                          device, stream);
+    return run<int32_t>(bins, n_rows, m, feature, split_bin, default_left, is_leaf,
+                        leaf_value, n_trees, n_nodes, max_depth, margin_in, out, scratch,
+                        device, stream);
+  });
 }

@@ -74,6 +74,8 @@
 
 #include <atomic>
 
+#include "device_guard.cuh"
+
 namespace hist {
 
 constexpr int kMissingBin = 255;
@@ -83,10 +85,10 @@ constexpr int kPass1RowsPerThread = 8;
 // slots, and straight into global memory above it
 constexpr int kSharedCountSlots = 1024;
 constexpr int kScanThreads = 1024;
-// shared memory a block may take on this card, and the devices whose
-// limits allow_max_shared records
+// shared memory a block may take on this card; the devices whose limits
+// allow_max_shared records are guard::kMaxDevices
 constexpr int kMaxBlockShared = 227 * 1024;
-constexpr int kMaxDevices = 64;
+using guard::kMaxDevices;
 
 // Launch plan from the wrapper (`kernels/histogram.py::HistPlan.c_args`), a
 // host array of ints in this order.
@@ -471,8 +473,9 @@ inline cudaError_t clear_header(int32_t* ws, int n_slots, cudaStream_t stream) {
 }
 
 // Raises a kernel's dynamic shared-memory limit to all that a block may take
-// on the device, less the kernel's static shared memory, once per device
-// (allowed[dev] records it), so that a page's launch makes no attribute
+// on device ``dev`` (current, guard::on_device), less the kernel's static
+// shared memory, once per device (allowed[dev] records it), so that a page's
+// launch makes no attribute
 // call; a launch takes only the memory it asks for. Two threads racing here
 // both store the same limit. The flags live in an unnamed namespace, one set
 // per library as each library has its own kernels: a static inside a
@@ -480,20 +483,17 @@ inline cudaError_t clear_header(int32_t* ws, int n_slots, cudaStream_t stream) {
 // unique symbol), and the library loaded second would launch without its
 // limit raised.
 template <typename Kernel>
-inline cudaError_t allow_max_shared(Kernel kernel, std::atomic<bool>* allowed) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && allowed[dev].load(std::memory_order_relaxed)) return cudaSuccess;
+inline cudaError_t allow_max_shared(Kernel kernel, std::atomic<bool>* allowed, int dev) {
+  if (allowed[dev].load(std::memory_order_relaxed)) return cudaSuccess;
   int optin = 0;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              optin - (int)attr.sharedSizeBytes);
-  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev].store(true, std::memory_order_relaxed);
+  if (err == cudaSuccess) allowed[dev].store(true, std::memory_order_relaxed);
   return err;
 }
 
@@ -504,7 +504,7 @@ std::atomic<bool> scatter_allowed[2][kMaxDevices];  // int32 bins, uint8 bins
 template <typename BinT>
 cudaError_t launch_scatter(const BinT* bins, int m, int n_bins, const float* g,
                            const float* h, Workspace w, int lg_rows, const int* plan,
-                           unsigned long long* acc, float* out, int accumulate,
+                           unsigned long long* acc, float* out, int accumulate, int dev,
                            cudaStream_t stream) {
   const int feat_group = plan[kFeatGroup];
   const int n_groups = (m + feat_group - 1) / feat_group;
@@ -518,7 +518,8 @@ cudaError_t launch_scatter(const BinT* bins, int m, int n_bins, const float* g,
       blocks > 0x7fffffffL) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = allow_max_shared(scatter_kernel<BinT>, scatter_allowed[sizeof(BinT) == 1]);
+  cudaError_t err =
+      allow_max_shared(scatter_kernel<BinT>, scatter_allowed[sizeof(BinT) == 1], dev);
   if (err != cudaSuccess) return err;
   scatter_kernel<BinT><<<(unsigned int)blocks, plan[kThreads], smem, stream>>>(
       bins, m, n_bins, g, h, w, lg_rows, feat_group, n_groups, batch_rows, words, acc, out,
@@ -527,12 +528,12 @@ cudaError_t launch_scatter(const BinT* bins, int m, int n_bins, const float* g,
 }
 
 // Passes 2-5 on the caller's stream, after pass 1 has filled slot, rank,
-// counts and absmax.
+// counts and absmax; ``dev`` is the current device (guard::on_device).
 inline cudaError_t bucket_scatter(const void* bins, int bins_u8, int n_rows, int m,
                                   int n_bins, int n_slots, const float* g, const float* h,
                                   Workspace w, int lg_rows, const int* plan,
                                   unsigned long long* acc, float* out, int accumulate,
-                                  cudaStream_t stream) {
+                                  int dev, cudaStream_t stream) {
   const long slot_values = (long)m * n_bins * 2;
   plan_items_kernel<<<1, kScanThreads, 0, stream>>>(w, n_slots, plan[kMinChunk],
                                                     plan[kTargetItems]);
@@ -545,10 +546,10 @@ inline cudaError_t bucket_scatter(const void* bins, int bins_u8, int n_rows, int
   if (err != cudaSuccess) return err;
   if (bins_u8) {
     err = launch_scatter((const uint8_t*)bins, m, n_bins, g, h, w, lg_rows, plan, acc, out,
-                         accumulate, stream);
+                         accumulate, dev, stream);
   } else {
     err = launch_scatter((const int32_t*)bins, m, n_bins, g, h, w, lg_rows, plan, acc, out,
-                         accumulate, stream);
+                         accumulate, dev, stream);
   }
   if (err != cudaSuccess || plan[kBigBound] == 0) return err;
   const long fin_want = ((long)plan[kBigBound] * slot_values + 255) / 256;

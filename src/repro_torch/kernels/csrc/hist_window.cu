@@ -60,29 +60,32 @@ __global__ void window_slot_kernel(const int32_t* __restrict__ pos,
 // Scratch comes from the caller: ws (`HistPlan.ws_ints` int32, see
 // hist::Workspace) and acc (plan[kBigBound] * m * n_bins * 2 int64, may be
 // null when that is 0). plan is a host array (hist::PlanField). With
-// accumulate, out holds a histogram this one is added into. Returns the
-// first CUDA error, or 0.
+// accumulate, out holds a histogram this one is added into. Everything runs
+// on ``device``, the tensors' (guard::on_device), on its stream stream_ptr.
+// Returns the first CUDA error, or 0.
 extern "C" int hist_window_launch(const void* bins, int bins_u8, int n_rows, int m,
                                   int n_bins, const float* g, const float* h,
                                   const int32_t* pos, const int32_t* node_map,
                                   int map_len, int stage_map, int n_nodes, int32_t* ws,
                                   unsigned long long* acc, float* out, int accumulate,
-                                  const int* plan, int lg_rows, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  cudaError_t err = hist::clear_header(ws, n_nodes, stream);
-  if (err != cudaSuccess) return (int)err;
-  const hist::Workspace w = hist::carve(ws, n_rows, n_nodes, plan[hist::kItemsBound]);
+                                  const int* plan, int lg_rows, int device, void* stream_ptr) {
+  return guard::on_device(device, [&]() -> int {
+    cudaStream_t stream = (cudaStream_t)stream_ptr;
+    cudaError_t err = hist::clear_header(ws, n_nodes, stream);
+    if (err != cudaSuccess) return (int)err;
+    const hist::Workspace w = hist::carve(ws, n_rows, n_nodes, plan[hist::kItemsBound]);
 
-  const int shared_counts = hist::shared_counts(n_nodes);
-  const int smem =
-      ((shared_counts ? n_nodes : 0) + (stage_map ? map_len : 0)) * (int)sizeof(int32_t);
-  err = hist::allow_max_shared(window_slot_kernel, window_slot_allowed);
-  if (err != cudaSuccess) return (int)err;
-  window_slot_kernel<<<hist::pass1_blocks(n_rows), hist::kPass1Threads, smem, stream>>>(
-      pos, node_map, map_len, stage_map, n_nodes, n_rows, g, h, w, shared_counts);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+    const int shared_counts = hist::shared_counts(n_nodes);
+    const int smem =
+        ((shared_counts ? n_nodes : 0) + (stage_map ? map_len : 0)) * (int)sizeof(int32_t);
+    err = hist::allow_max_shared(window_slot_kernel, window_slot_allowed, device);
+    if (err != cudaSuccess) return (int)err;
+    window_slot_kernel<<<hist::pass1_blocks(n_rows), hist::kPass1Threads, smem, stream>>>(
+        pos, node_map, map_len, stage_map, n_nodes, n_rows, g, h, w, shared_counts);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
 
-  return (int)hist::bucket_scatter(bins, bins_u8, n_rows, m, n_bins, n_nodes, g, h, w,
-                                   lg_rows, plan, acc, out, accumulate, stream);
+    return (int)hist::bucket_scatter(bins, bins_u8, n_rows, m, n_bins, n_nodes, g, h, w,
+                                     lg_rows, plan, acc, out, accumulate, device, stream);
+  });
 }

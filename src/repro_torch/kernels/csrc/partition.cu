@@ -42,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kMissingBin = 255;
@@ -101,22 +103,26 @@ __global__ void __launch_bounds__(kThreads) partition_kernel(
 // bins: (n_rows, m) uint8 (bins_u8 == 1) or int32, row-major; node tables
 // (n_nodes,); pos_in, pos_out: (n_rows,) int32. count > 0 adds the rows of
 // the window [offset, offset + count) into counts (count,) int32; count == 0
-// counts nothing and counts may be null.
+// counts nothing and counts may be null. The launch runs on ``device``, the
+// tensors' (guard::on_device), on its stream stream_ptr.
 extern "C" int partition_launch(const void* bins, int bins_u8, long n_rows, int m,
                                 const int32_t* pos_in, const int32_t* feature,
                                 const int32_t* split_bin, const uint8_t* default_left,
                                 const uint8_t* is_leaf, int n_nodes, int32_t* pos_out,
-                                long offset, int count, int32_t* counts, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const int blocks = (int)((n_rows + kThreads - 1) / kThreads);
-  if (bins_u8) {
-    partition_kernel<uint8_t><<<blocks, kThreads, 0, stream>>>(
-        (const uint8_t*)bins, n_rows, m, pos_in, feature, split_bin, default_left, is_leaf,
-        n_nodes, pos_out, offset, count, counts);
-  } else {
-    partition_kernel<int32_t><<<blocks, kThreads, 0, stream>>>(
-        (const int32_t*)bins, n_rows, m, pos_in, feature, split_bin, default_left, is_leaf,
-        n_nodes, pos_out, offset, count, counts);
-  }
-  return (int)cudaGetLastError();
+                                long offset, int count, int32_t* counts, int device,
+                                void* stream_ptr) {
+  return guard::on_device(device, [&]() -> int {
+    cudaStream_t stream = (cudaStream_t)stream_ptr;
+    const int blocks = (int)((n_rows + kThreads - 1) / kThreads);
+    if (bins_u8) {
+      partition_kernel<uint8_t><<<blocks, kThreads, 0, stream>>>(
+          (const uint8_t*)bins, n_rows, m, pos_in, feature, split_bin, default_left, is_leaf,
+          n_nodes, pos_out, offset, count, counts);
+    } else {
+      partition_kernel<int32_t><<<blocks, kThreads, 0, stream>>>(
+          (const int32_t*)bins, n_rows, m, pos_in, feature, split_bin, default_left, is_leaf,
+          n_nodes, pos_out, offset, count, counts);
+    }
+    return (int)cudaGetLastError();
+  });
 }

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import require, require_cuda, stream_ptr
+from repro_torch.kernels._checks import launch_target, require, require_cuda
 
 # widest edge table a block stages: 32 features x 1023 f32 rows, 128 KB of
 # shared memory beside a 12 KB value ring, within the card's 227 KB a block
@@ -43,8 +43,8 @@ def bin_values(
     fn = _build.library("ellpack_bin")
     err = fn(
         x.data_ptr(), int(x.dtype == torch.float64), n_rows, m, padded_edges.data_ptr(),
-        max_bin, n_bins_per_feature.data_ptr(), out.data_ptr(), stream_ptr(dev),
+        max_bin, n_bins_per_feature.data_ptr(), out.data_ptr(), *launch_target(dev),
     )
-    _build.check(err, "bin_values")
+    _build.check(err, "bin_values", dev)
     launches += 1
     return out

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import require, require_cuda, stream_ptr
+from repro_torch.kernels._checks import launch_target, require, require_cuda
 
 launches = 0
 
@@ -77,8 +77,8 @@ def predict_forest(
         bins.data_ptr(), int(bins.dtype == torch.uint8), n_rows, m,
         feature.data_ptr(), split_bin.data_ptr(), default_left.data_ptr(),
         is_leaf.data_ptr(), leaf_value.data_ptr(), n_trees, n_nodes, max_depth,
-        margin_in.data_ptr(), out.data_ptr(), scratch.data_ptr(), stream_ptr(dev),
+        margin_in.data_ptr(), out.data_ptr(), scratch.data_ptr(), *launch_target(dev),
     )
-    _build.check(err, "predict_forest")
+    _build.check(err, "predict_forest", dev)
     launches += 1
     return out

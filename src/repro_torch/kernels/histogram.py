@@ -27,7 +27,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import require, require_cuda, stream_ptr
+from repro_torch.kernels._checks import launch_target, require, require_cuda
 
 # the least chunk size: a scatter block takes at most C rows of one slot
 # (one work item), C chosen on the card as the larger of this and the
@@ -199,9 +199,9 @@ def build_histogram_nodes(
         bins.data_ptr(), int(bins.dtype == torch.uint8), n_rows, m, n_bins,
         g.data_ptr(), h.data_ptr(), positions.data_ptr(), build_nodes.data_ptr(),
         n_slots, ws, acc, out.data_ptr(), int(add_into is not None), plan.c_args,
-        max(0, (n_rows - 1).bit_length()), stream_ptr(bins.device),
+        max(0, (n_rows - 1).bit_length()), *launch_target(bins.device),
     )
-    _build.check(err, "build_histogram_nodes")
+    _build.check(err, "build_histogram_nodes", bins.device)
     launches += 1
     return out
 
@@ -236,8 +236,8 @@ def build_histogram(
         None if node_map is None else node_map.data_ptr(), map_len,
         int(0 < map_len <= MAX_STAGED_MAP), n_nodes, ws, acc, out.data_ptr(),
         int(add_into is not None), plan.c_args, max(0, (n_rows - 1).bit_length()),
-        stream_ptr(bins.device),
+        *launch_target(bins.device),
     )
-    _build.check(err, "build_histogram")
+    _build.check(err, "build_histogram", bins.device)
     launches_window += 1
     return out

@@ -11,7 +11,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import check_count_window, require, require_cuda, stream_ptr
+from repro_torch.kernels._checks import (
+    check_count_window,
+    launch_target,
+    require,
+    require_cuda,
+)
 
 launches = 0
 
@@ -52,8 +57,8 @@ def partition_rows(
         bins.data_ptr(), int(bins.dtype == torch.uint8), n_rows, m,
         positions.data_ptr(), feature.data_ptr(), split_bin.data_ptr(),
         default_left.data_ptr(), is_leaf.data_ptr(), n_nodes, out.data_ptr(),
-        offset, count, None if counts is None else counts.data_ptr(), stream_ptr(dev),
+        offset, count, None if counts is None else counts.data_ptr(), *launch_target(dev),
     )
-    _build.check(err, "partition_rows")
+    _build.check(err, "partition_rows", dev)
     launches += 1
     return out

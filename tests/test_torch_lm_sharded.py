@@ -4,9 +4,11 @@ the same step with no mesh; and the sharded checkpoints.
 Two ranks (a 1 x 2 ``(data, model)`` mesh) and four (2 x 2) run
 `torch_lm_shard_ranks.run`, spawned once per module with
 `torch.multiprocessing` (a ``file://`` store under tmp, a 60 s collective
-timeout, a join deadline): REDUCED llama3.2-1b, olmoe-1b-7b and hymba-1.5b
-in f32, their weights laid out per `param_specs`, the batch over the data
-axis, prefill, 3 greedy decode steps on the sharded contiguous cache and
+timeout, a join deadline): the ten REDUCED archs in f32, their weights
+laid out per `param_specs`, the batch over the data axis (tokens;
+musicgen's codes; llava's tokens and patch embeddings, which its training
+step puts before the tokens), prefill, 3 greedy decode steps on the sharded
+contiguous cache and
 one `make_train_step` under `set_mesh_context`. Every rank's gathered
 results are held against this process's one-rank run
 (`torch_lm_shard_ranks.check_against_one_rank`):
@@ -285,13 +287,13 @@ def test_remat_backward_runs_under_the_forward_mesh(tmp_path, arch):
     try:
         axes = MeshAxes()
         mesh = make_host_mesh(1, 1, device_type="cpu")
-        cfg, params, tokens = ranks._inputs(arch)
-        params, tokens = ranks._laid_out(params, tokens, mesh, axes)
+        cfg, params, batch = ranks._inputs(arch)
+        params, batch = ranks._laid_out(params, batch, mesh, axes)
         grads = []
         for elsewhere in (False, True):
             p = tree_map(lambda t: t.detach().requires_grad_(True), params)
             with set_mesh_context(mesh, axes):
-                loss, _ = lm_loss(p, cfg, {"tokens": tokens}, remat=True)
+                loss, _ = lm_loss(p, cfg, batch, remat=True)
                 backward = lambda: grads.append(torch.autograd.grad(loss, tree_leaves(p)))  # noqa: E731
                 if elsewhere:
                     thread = threading.Thread(target=backward)

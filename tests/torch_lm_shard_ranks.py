@@ -1,8 +1,9 @@
 """The rank programs of the port's sharded LM runs, and what they are held to.
 
 Imports neither JAX nor the reference. Every rank builds the same seeded
-weights and batch and lays them out per the sharding rules on a ``(data,
-model)`` mesh.
+weights and batch (`_batch`: tokens, an audio model's codes, a vision
+model's patch embeddings) and lays them out per the sharding rules on a
+``(data, model)`` mesh.
 
 - `run`: gloo ranks on the CPU (`test_torch_lm_sharded.py`, worlds of 2 and
   4). Each rank runs `compute` (prefill, 3 greedy decode steps on the
@@ -15,7 +16,9 @@ model)`` mesh.
   again, sharded; last, `disagreement`.
 - `run_cards`: one card a rank over NCCL (`test_torch_cuda.py`'s four-card
   runs): `compute` on 2 x 2 (twice: whether NCCL gives the same bits run to
-  run), then phi3-mini-3.8b and olmoe-1b-7b at full width (`full_width`).
+  run), then FULL_ARCHS at full width (`full_width`; llava-next-34b and
+  moonshot-v1-16b-a3b at their FULL_LAYERS depth, reckoned by
+  `full_depth_reckoned` and `hold_depth_reckoned`).
 - `card_of_one`: a world of one over NCCL on one card (`chip_smoke.py`
   phase 16): `compute` on a 1 x 1 card mesh against no mesh, and a
   checkpoint saved and restored with ``shardings`` bit for bit.
@@ -33,7 +36,9 @@ import time
 
 import numpy as np
 
-ARCHS = ("llama3.2-1b", "olmoe-1b-7b", "hymba-1.5b")
+ARCHS = ("llama3.2-1b", "olmoe-1b-7b", "hymba-1.5b", "mamba2-130m", "smollm-135m",
+         "phi3-mini-3.8b", "minicpm-2b", "musicgen-large", "moonshot-v1-16b-a3b",
+         "llava-next-34b")
 MESHES = {2: (1, 2), 4: (2, 2)}  # world -> (data, model)
 B, S = 4, 32
 DECODE_STEPS = 3
@@ -51,8 +56,32 @@ DECODE_TOL = 1e-4
 SIZEABLE_GRAD = 1e-4
 
 # ---- full width on four cards (`full_width`)
-FULL_ARCHS = ("phi3-mini-3.8b", "olmoe-1b-7b")
-FULL_BATCH, FULL_SEQ = 4, 512
+FULL_ARCHS = ("phi3-mini-3.8b", "olmoe-1b-7b", "llava-next-34b", "moonshot-v1-16b-a3b")
+FULL_BATCH, FULL_SEQ = 4, 512  # and a vision model's n_patches patch positions
+# Depth cuts; widths, heads, experts, top-k, vocab and n_patches stay as in
+# configs/*.py. At ~23 B a parameter on 2 x 2, llava-next-34b (60 layers,
+# 34.4 B parameters) and moonshot-v1-16b-a3b (48 layers, 28.1 B) need more
+# than four 80 GB cards, so they run at the largest depth whose dry run of a
+# bf16 step on 2 x 2 peaks at most FULL_PEAK_LIMIT a card
+# (`full_depth_reckoned`, dry runs on the host); phi3 and olmoe run
+# whole. The f32 hold runs at the largest depth whose one-card f32
+# `value_and_grad` peaks at most HOLD_PEAK_LIMIT (`hold_depth_reckoned`): the
+# rest of the card's 85.0 GB is the CUDA context's, the NCCL communicators'
+# of every mesh the run has made (their buffers lie outside the allocator)
+# and the allocator's; at 71 GB a hold left NCCL no room (llava, 12 layers).
+# Reckoned on an NVIDIA H100 80GB HBM3 machine (torch 2.11.0+cu128): dry-run
+# peaks a card of llava 30,952,716,332 B at 8 layers, 55,500,306,476 at 16,
+# 61,637,204,012 at 18 and 64,705,652,780 at 19; moonshot 27,140,210,732 at
+# 8, 52,245,413,932 at 16, 61,659,865,132 at 19 and 64,798,015,532 at 20.
+# One-card f32 holds: llava 25,386,275,840 B at 2 layers, 34,558,399,488 at
+# 4, 71,261,574,144 at 12 (4,587,529,830 B a layer: 62.1 GB at 10, 66.7 at
+# 11); moonshot 11,545,982,464 at 2, 22,436,019,200 at 4, 70,311,148,544 at
+# 13 (5,342,287,825 a layer: 59.6 GB at 11, 65.0 at 12).
+FULL_PEAK_LIMIT = 64e9
+HOLD_PEAK_LIMIT = 64e9
+MIN_LAYERS = 8  # no cut below this
+FULL_LAYERS = {"llava-next-34b": 18, "moonshot-v1-16b-a3b": 19}
+HOLD_LAYERS = {"llava-next-34b": 10, "moonshot-v1-16b-a3b": 11}
 FULL_STEPS = 3
 FULL_OPT = dict(peak_lr=1e-3, warmup_steps=1, total_steps=FULL_STEPS)
 TEMPER = 0.1  # q, k and in_proj scaled in the f32 hold (chip_smoke's TRAIN_TEMPER)
@@ -62,6 +91,7 @@ BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 
 
 def _inputs(arch: str, device="cpu"):
+    """The REDUCED config, its seeded weights and its batch (`_batch`)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -69,9 +99,32 @@ def _inputs(arch: str, device="cpu"):
 
     cfg = get_config(arch, reduced=True)
     params = _to(init_params(cfg, torch.Generator().manual_seed(SEED), "cpu"), device)
+    return cfg, params, _to(_batch(cfg, B, S), device)
+
+
+def _batch(cfg, batch: int, seq: int) -> dict:
+    """A training batch of ``cfg`` made from SEED with numpy, on the host:
+    ``tokens`` (batch, seq); an audio model's ``codes`` (batch, seq,
+    n_codebooks) in their place; a vision model's ``patch_embeds`` (batch,
+    n_patches, d_model) beside them, in the model's dtype (they come
+    first in the sequence)."""
+    import torch
+
     rng = np.random.default_rng(SEED)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int64))
-    return cfg, params, tokens.to(device)
+    if cfg.n_codebooks:
+        codes = rng.integers(0, cfg.vocab_size, (batch, seq, cfg.n_codebooks))
+        return {"codes": torch.from_numpy(codes.astype(np.int64))}
+    out = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)))}
+    if cfg.frontend == "vision":
+        patches = rng.standard_normal((batch, cfg.n_patches, cfg.d_model), dtype=np.float32)
+        out["patch_embeds"] = torch.from_numpy(patches).to(getattr(torch, cfg.dtype))
+    return out
+
+
+def _prompt(batch: dict):
+    """What prefill takes of a batch: the codes of an audio model, else the
+    tokens (a vision model is served text only)."""
+    return batch["codes"] if "codes" in batch else batch["tokens"]
 
 
 def _to(tree, device):
@@ -118,11 +171,16 @@ def _on_data(tokens, mesh, axes):
     return distribute_tree(tokens, (axes.data,) + (None,) * (tokens.ndim - 1), mesh)
 
 
-def _laid_out(params, tokens, mesh, axes):
+def _batch_on_data(batch: dict, mesh, axes) -> dict:
+    """Every tensor of a batch split over the data axes."""
+    return {k: _on_data(v, mesh, axes) for k, v in batch.items()}
+
+
+def _laid_out(params, batch, mesh, axes):
     """The weights per the rules and the batch over the data axes."""
     from repro_torch.sharding.rules import param_shardings
 
-    return param_shardings(params, mesh, axes), _on_data(tokens, mesh, axes)
+    return param_shardings(params, mesh, axes), _batch_on_data(batch, mesh, axes)
 
 
 def _mesh_ctx(mesh, axes):
@@ -144,13 +202,13 @@ def compute(arch: str, mesh=None, axes=None, device="cpu") -> dict:
     from repro_torch.train.optimizer import adamw_init
     from repro_torch.train.train_step import TrainConfig, TrainState, make_train_step
 
-    cfg, params, tokens = _inputs(arch, device)
+    cfg, params, batch = _inputs(arch, device)
     if mesh is not None:
-        params, tokens = _laid_out(params, tokens, mesh, axes)
+        params, batch = _laid_out(params, batch, mesh, axes)
     out = {}
     with _mesh_ctx(mesh, axes):
         with torch.no_grad():  # DTensors do not run under inference_mode
-            logits, cache = prefill(params, cfg, tokens, max_len=S + DECODE_STEPS)
+            logits, cache = prefill(params, cfg, _prompt(batch), max_len=S + DECODE_STEPS)
             out["logits"] = _full(logits)
             steps, picked = [], []
             for _ in range(DECODE_STEPS):
@@ -161,13 +219,13 @@ def compute(arch: str, mesh=None, axes=None, device="cpu") -> dict:
             out["decode_logits"], out["decode_tokens"] = np.stack(steps), np.stack(picked)
             del cache
         step = make_train_step(cfg, _opt(), TrainConfig(remat=True))
-        state, metrics = step(TrainState(params, adamw_init(params, _opt())), {"tokens": tokens})
+        state, metrics = step(TrainState(params, adamw_init(params, _opt())), batch)
     out.update(loss=_full(metrics["loss"]), grad_norm=_full(metrics["grad_norm"]))
     if mesh is None:  # the one-rank gradients, which the comparison of updates reads
         from repro_torch.models.transformer import lm_loss
         from repro_torch.train.train_step import value_and_grad
 
-        _, _, grads = value_and_grad(lambda p: lm_loss(p, cfg, {"tokens": tokens}), params)
+        _, _, grads = value_and_grad(lambda p: lm_loss(p, cfg, batch), params)
         out.update({f"grad/{k}": _full(v) for k, v in _leaves(grads)})
     out.update({f"param/{k}": _full(v) for k, v in _leaves(state.params)})
     return out
@@ -179,12 +237,13 @@ def f32_floor(arch: str, device="cpu") -> float:
 
     from repro_torch.models.serve import prefill
 
-    cfg, params, tokens = _inputs(arch, device)
+    cfg, params, batch = _inputs(arch, device)
     with torch.no_grad():
-        got, _ = prefill(params, cfg, tokens, max_len=S)
+        got, _ = prefill(params, cfg, _prompt(batch), max_len=S)
         p64 = {k: ({kk: vv.double() for kk, vv in v.items()} if isinstance(v, dict)
                    else v.double()) for k, v in params.items()}
-        want, _ = prefill(p64, dataclasses.replace(cfg, dtype="float64"), tokens, max_len=S)
+        want, _ = prefill(p64, dataclasses.replace(cfg, dtype="float64"), _prompt(batch),
+                          max_len=S)
     return float((got.double() - want).abs().max())
 
 
@@ -287,11 +346,10 @@ def _trained(arch: str, mesh, axes, device):
     from repro_torch.train.optimizer import adamw_init
     from repro_torch.train.train_step import TrainConfig, TrainState, make_train_step
 
-    cfg, params, tokens = _inputs(arch, device)
+    cfg, params, batch = _inputs(arch, device)
     if mesh is not None:
-        params, tokens = _laid_out(params, tokens, mesh, axes)
+        params, batch = _laid_out(params, batch, mesh, axes)
     step = make_train_step(cfg, _opt(), TrainConfig(remat=True))
-    batch = {"tokens": tokens}
     with _mesh_ctx(mesh, axes):
         state, _ = step(TrainState(params, adamw_init(params, _opt())), batch)
     return state, step, batch
@@ -353,9 +411,9 @@ def restore_flow(path: str, arch: str, mesh, axes, device, prefix: str, bf16: bo
     if step_after:
         from repro_torch.train.train_step import TrainConfig, make_train_step
 
-        cfg, _, tokens = _inputs(arch, device)
+        cfg, _, batch = _inputs(arch, device)
         step = make_train_step(cfg, _opt(), TrainConfig(remat=True))
-        res.update(_stepped(step, state, {"tokens": _on_data(tokens, mesh, axes)}, mesh, axes,
+        res.update(_stepped(step, state, _batch_on_data(batch, mesh, axes), mesh, axes,
                             f"{prefix}step/"))
     return res, state
 
@@ -464,7 +522,12 @@ def run_cards(rank: int, world: int, store: str, out: str, backend: str) -> None
     """One card a rank (``cuda:rank``) over ``backend``: `compute` of every
     arch on the world's mesh (``cards_<arch>_r<rank>.npz``), then
     `full_width` of FULL_ARCHS on the meshes ``<out>/plan.json`` names
-    (``cards_full_<arch>_r<rank>.json``)."""
+    (``cards_full_<arch>_r<rank>.json``). An error is also written to
+    ``cards_error_r<rank>.txt`` with the card's free and allocated bytes
+    (the spawning process sees only the exit code)."""
+    import traceback
+
+    import torch
     import torch.distributed as dist
 
     dev = _card_world(rank, world, store, backend, rank)
@@ -484,6 +547,12 @@ def run_cards(rank: int, world: int, store: str, out: str, backend: str) -> None
             res = full_width(arch, plan[arch], out, dev)
             with open(os.path.join(out, f"cards_full_{arch}_r{rank}.json"), "w") as fh:
                 json.dump(res, fh)
+    except Exception:
+        free, total = torch.cuda.mem_get_info(dev)
+        with open(os.path.join(out, f"cards_error_r{rank}.txt"), "w") as fh:
+            fh.write(f"{traceback.format_exc()}\ncard {dev}: {free} of {total} B free, "
+                     f"{torch.cuda.memory_allocated(dev)} B allocated by this rank\n")
+        raise
     finally:
         dist.destroy_process_group()
 
@@ -523,12 +592,18 @@ def _upcast(tree: dict) -> dict:
     return tree
 
 
-def _full_batch(cfg, mesh, axes, device):
-    import torch
+def full_config(arch: str, dtype: str | None = None, layers: int | None = None):
+    """``arch``'s full CONFIG at its FULL_LAYERS depth (or ``layers``), in
+    ``dtype`` if given."""
+    from repro_torch.configs import get_config
 
-    rng = np.random.default_rng(SEED)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (FULL_BATCH, FULL_SEQ)))
-    return {"tokens": _on_data(tokens.to(device), mesh, axes)}
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=layers or FULL_LAYERS.get(arch, cfg.n_layers),
+                               dtype=dtype or cfg.dtype)
+
+
+def _full_batch(cfg, mesh, axes, device):
+    return _batch_on_data(_to(_batch(cfg, FULL_BATCH, FULL_SEQ), device), mesh, axes)
 
 
 def _sync_s(t0: float) -> float:
@@ -583,19 +658,20 @@ def one_card(params: dict, cfg, device) -> tuple[float, float]:
 
 
 def full_width(arch: str, plan: dict, out: str, device) -> dict:
-    """phi3-mini-3.8b or olmoe-1b-7b at full width and depth on the cards of
-    the world: (i) the f32 hold (tempered weights): one card's
-    `value_and_grad` (each rank on its own card), then the same weights
-    sharded on the plan's mesh; (ii) FULL_STEPS bf16 steps from seeded
-    weights laid out by `param_shardings` (step 1's loss and gradient norm
-    beside one card's on the same weights, `one_card`, in bf16 and upcast to
-    f32; each step's host seconds; the peak bytes; one more step profiled); (iii) for CKPT_ARCH,
-    the state after step 2 saved, and after the steps restored onto the
-    plan's other mesh: each leaf against the saved state bit for bit, then
-    step 3 there."""
+    """One of FULL_ARCHS at full width (at its `full_config` depth) on the
+    cards of the world: (i) the f32 hold (tempered weights, at its
+    HOLD_LAYERS depth): one card's `value_and_grad` (each rank on its own
+    card), then the same weights sharded on the plan's mesh; (ii)
+    FULL_STEPS bf16 steps from seeded weights laid out by `param_shardings`
+    (step 1's loss and gradient norm beside one card's on the same weights,
+    `one_card`, in bf16, and upcast to f32 where the arch runs whole: an f32
+    copy of a cut llava or moonshot and its gradients would not fit a card;
+    each step's host seconds; the peak bytes; one more step profiled);
+    (iii) for CKPT_ARCH, the state after step 2 saved, and after the steps
+    restored onto the plan's other mesh: each leaf against the saved state
+    bit for bit, then step 3 there."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.transformer import init_params, lm_loss
     from repro_torch.sharding.rules import MeshAxes, param_shardings
@@ -609,15 +685,21 @@ def full_width(arch: str, plan: dict, out: str, device) -> dict:
 
     axes = MeshAxes()
     mesh = make_host_mesh(*plan["mesh"], device_type="cuda")
-    full = get_config(arch)
-    res = {"arch": arch, "mesh": plan["mesh"], "device": torch.cuda.get_device_name(device)}
+    full = full_config(arch)
+    res = {"arch": arch, "mesh": plan["mesh"], "device": torch.cuda.get_device_name(device),
+           "layers": full.n_layers}
 
     # (i) the f32 hold
-    cfg32 = dataclasses.replace(full, dtype="float32")
+    cfg32 = full_config(arch, "float32", HOLD_LAYERS.get(arch))
     params = _tempered(init_params(cfg32, torch.Generator(device=device).manual_seed(SEED),
                                    device))
+    torch.cuda.reset_peak_memory_stats(device)
     for where, m in (("one_card", None), ("sharded", mesh)):
         if m is not None:
+            # the one-card pass's cached blocks back to the card first: the
+            # mesh's NCCL communicators allocate their buffers outside the
+            # allocator when first used, here
+            torch.cuda.empty_cache()
             params = param_shardings(params, m, axes)
         batch = _full_batch(cfg32, m, axes, device)
         with _mesh_ctx(m, axes):
@@ -625,19 +707,24 @@ def full_width(arch: str, plan: dict, out: str, device) -> dict:
             gnorm = global_norm(grads)
         res[f"f32_{where}_loss"] = float(_whole(loss))
         res[f"f32_{where}_grad_norm"] = float(_whole(gnorm))
+        if m is None:
+            res["f32_one_card_peak_bytes"] = torch.cuda.max_memory_allocated(device)
         del loss, grads, gnorm
     res["f32_layers"] = cfg32.n_layers
     del params
     torch.cuda.empty_cache()
 
     # (ii) bf16 training; first step 1 on one card, on the weights upcast to
-    # f32 (bf16's own error is their gap) and as drawn
+    # f32 (bf16's own error is their gap; where the arch runs whole) and as
+    # drawn
     held = torch.cuda.memory_allocated(device)
-    params = _upcast(init_params(full, torch.Generator(device=device).manual_seed(SEED),
-                                 device))
-    res["f32_one_card_bf16_weights_loss"], res["f32_one_card_bf16_weights_grad_norm"] = (
-        one_card(params, cfg32, device))
-    del params
+    if arch not in FULL_LAYERS:
+        params = _upcast(init_params(full, torch.Generator(device=device).manual_seed(SEED),
+                                     device))
+        torch.cuda.empty_cache()  # the bf16 leaves' blocks, before the f32 gradients
+        res["f32_one_card_bf16_weights_loss"], res["f32_one_card_bf16_weights_grad_norm"] = (
+            one_card(params, dataclasses.replace(full, dtype="float32"), device))
+        del params
     params = init_params(full, torch.Generator(device=device).manual_seed(SEED), device)
     res["bf16_one_card_loss"], res["bf16_one_card_grad_norm"] = one_card(params, full, device)
     torch.cuda.reset_peak_memory_stats(device)
@@ -701,6 +788,96 @@ def full_width(arch: str, plan: dict, out: str, device) -> dict:
         del restored
         torch.cuda.empty_cache()
     return res
+
+
+def dry_run(arch: str, mesh: tuple[int, int], layers: list[int]) -> dict[int, dict]:
+    """The dry run of a FULL_BATCH x FULL_SEQ bf16 step of ``arch`` at full
+    width on ``mesh`` at each depth of ``layers``
+    (`chip_smoke.train_peak_reckoned`, one host process a depth, started
+    together): depth -> its per-device peak, FLOPs and collectives."""
+    import subprocess
+    import sys
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"), OMP_NUM_THREADS="1")
+    procs = {
+        n: subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.train_peak_reckoned("
+             f"{arch!r}, {tuple(mesh)!r}, {n})"], cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        for n in layers
+    }
+    found = {}
+    for n, proc in procs.items():
+        got, err = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"dry run of {arch} at {n} layers failed:\n{err[-2000:]}")
+        found[n] = json.loads(got.strip().splitlines()[-1])
+    return found
+
+
+def _largest_under(peaks: dict[int, float], limit: float) -> int:
+    """The largest depth under ``limit`` on the line through the peaks at the
+    least and the most of their depths (a layer adds its weights, state and
+    remat input alike)."""
+    lo, hi = min(peaks), max(peaks)
+    per_layer = (peaks[hi] - peaks[lo]) / (hi - lo)
+    return lo + int((limit - peaks[lo]) // per_layer)
+
+
+def full_depth_reckoned(arch: str, mesh: tuple[int, int] = (2, 2)) -> dict:
+    """FULL_LAYERS' reckoning for ``arch`` (on the host, no card needed,
+    with the torch the cards run): the dry-run peaks a card at MIN_LAYERS and twice that
+    put on a line, the depth where the line meets FULL_PEAK_LIMIT checked by
+    dry runs at it and one layer above. Returns the depth chosen (the
+    largest checked under the limit, at least MIN_LAYERS) and every peak
+    seen."""
+    peaks = {n: c["peak"] for n, c in dry_run(arch, mesh, [MIN_LAYERS, 2 * MIN_LAYERS]).items()}
+    guess = max(MIN_LAYERS, _largest_under(peaks, FULL_PEAK_LIMIT))
+    peaks.update({n: c["peak"] for n, c in dry_run(arch, mesh, [guess, guess + 1]).items()})
+    under = [n for n, p in peaks.items() if p <= FULL_PEAK_LIMIT]
+    return {"arch": arch, "mesh": list(mesh), "layers": max([MIN_LAYERS] + under),
+            "peaks": {str(n): peaks[n] for n in sorted(peaks)}}
+
+
+def _hold_peak(arch: str, layers: int, device) -> int:
+    """The peak bytes of one card's f32 `value_and_grad` of ``arch`` at
+    ``layers`` (tempered weights, the full-width batch), from an empty card."""
+    import torch
+
+    from repro_torch.models.transformer import init_params
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    cfg = full_config(arch, "float32", layers)
+    try:
+        params = _tempered(init_params(cfg, torch.Generator(device=device).manual_seed(SEED),
+                                       device))
+        one_card(params, cfg, device)
+        peak = torch.cuda.max_memory_allocated(device)
+    except torch.cuda.OutOfMemoryError:  # past the card: past any limit
+        peak = torch.cuda.get_device_properties(device).total_memory
+    params = None
+    torch.cuda.empty_cache()
+    return peak
+
+
+def hold_depth_reckoned(arch: str, device) -> dict:
+    """HOLD_LAYERS' reckoning for ``arch`` on one card: the f32 hold's peak
+    at 2 and 4 layers put on a line, the depth where it meets
+    HOLD_PEAK_LIMIT run, and one layer fewer while that peaks over it.
+    Returns the depth and every peak seen. Run by hand on a card:
+    ``python3 -c "import sys, torch; sys.path[:0] = ['src', 'tests']; import
+    torch_lm_shard_ranks as r; print(r.hold_depth_reckoned('llava-next-34b',
+    torch.device('cuda', 0)))"``."""
+    peaks = {n: _hold_peak(arch, n, device) for n in (2, 4)}
+    depth = _largest_under(peaks, HOLD_PEAK_LIMIT)
+    while depth > 1:
+        peaks[depth] = _hold_peak(arch, depth, device)
+        if peaks[depth] <= HOLD_PEAK_LIMIT:
+            break
+        depth -= 1
+    return {"arch": arch, "layers": depth, "peaks": {str(n): peaks[n] for n in sorted(peaks)}}
 
 
 def sensitivity(arch: str, device) -> list[dict]:
